@@ -220,9 +220,24 @@ class _State:
         self.traj.append((t0, n, perm))
 
 
-def build_plain_scl_decoder(spec: CodeSpec, list_size: int):
+def trajectory_spans(spec: CodeSpec, list_size: int) -> list[tuple[int, int]]:
+    """(t0, n) of each trajectory op (node op) of the decode program, in
+    program order: the spans of traj_bit that traj_perm[q] belongs to."""
+    ns = spec.block_sizes
+    return [(op.t0, ns[op.level])
+            for op in build_program(spec, scl=(int(list_size) > 1)).ops
+            if op.kind not in ("DOWN_FRESH", "DOWN_DYN", "UP")]
+
+
+def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
+                            trajectory: bool = False):
     """decode(llrs [B, N] float32 tensor) -> DecodeResult, in plain PyTorch
-    on the tensor's own device (the CUDA kernel's plain version)."""
+    on the tensor's own device (the CUDA kernel's plain version).
+
+    trajectory=True: decode returns the genealogy instead, (traj_bit
+    [N, P, B] int8, traj_perm [Q, P, B] int64, pm [P, B] float32), which
+    `scl_epilogue` over `trajectory_spans` turns into the DecodeResult (the
+    plain version of the trajectory kernels)."""
     check_supported(spec, list_size)
     P = int(list_size)
     m = len(spec.factors)
@@ -387,6 +402,8 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int):
         st = _State(spec, P, llrs)
         for fn, level, t0 in steps:
             fn(st, level, t0)
+        if trajectory:
+            return (st.traj_bit, torch.stack([e[2] for e in st.traj]), st.pm)
         return scl_epilogue(spec, P, st.traj, st.traj_bit, st.pm)
 
     return decode

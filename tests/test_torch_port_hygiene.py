@@ -36,7 +36,8 @@ def test_import_leaves_no_jax_or_polar_tpu():
 
 
 def test_sources_import_no_jax_or_polar_tpu():
-    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+    sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in sources
                  if _IMPORT.search(p.read_text())]
     assert offenders == []
     assert _IMPORT.search("from polar_tpu.ops import scl")
@@ -60,4 +61,38 @@ def test_default_device_raises_without_card():
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_sweep_entry_points_raise_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from polar_tpu_torch.models.presets import ca_scl, sweep
+    from polar_tpu_torch.ops.mc import build_mc_step
+    from polar_tpu_torch.sim import sweep_cli
+    from polar_tpu_torch.sim.harness import make_mc_step, run_sweep
+
+    spec = ca_scl().spec
+    for mode in ({}, {"counters": True}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_mc_step(spec, 8, **mode)
+    for backend in ("torch", "fused"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mc_step(spec, 8, backend=backend)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_sweep(sweep(), frames=1, backend=backend, progress=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_cli.main(["--preset", "sweep", "--backend", "fused",
+                        "--frames", "1"])
+
+
+def test_every_smoke_kernel_counts_its_launches():
+    """chip_smoke.py's kernel table names only kernels whose wrappers count
+    launches, and every kernel of the library is in it."""
+    import chip_smoke
+    from polar_tpu_torch.ops import cuda_scl
+
+    assert set(chip_smoke.KERNELS) == set(cuda_scl.LAUNCHES) == set(cuda_scl.KERNELS)
+    assert all(v.startswith("polar_tpu/ops/pallas_scl.py:")
+               for v in chip_smoke.KERNELS.values())
+    assert (ROOT / chip_smoke.SOURCE) == cuda_scl.SOURCE
 
