@@ -4,13 +4,15 @@
 
 Main paths: the flagship `ca_scl` code (N=1024, K=512 + CRC-16, Arikan,
 list size 8) decoded at B=8192 codewords per call through the
-hand-written CUDA kernels of polar_tpu_torch/csrc/scl_decode.cu, and the
+hand-written CUDA kernels of polar_tpu_torch/csrc/scl_decode.cu; the
 Monte-Carlo FER sweep of the `sweep` preset (ca_scl on the 8-point Eb/N0
-grid) through polar_tpu_torch.sim.harness. Phases (any failure exits
-non-zero):
+grid) through polar_tpu_torch.sim.harness; and the eBCH code `bch_sc`
+through the same kernels' l > 2 branch, the fused sweep, and the hybrid
+decoder with the stage kernel of polar_tpu_torch/csrc/stage_down.cu.
+Phases (any failure exits non-zero):
 
 1. device: name, count, nvidia-smi name and power limit;
-2. build: nvcc build of the four kernels, its seconds and ptxas report;
+2. build: one nvcc a source, started together; seconds and ptxas report;
 3. golden replay: results/golden_ca_scl_b256.npz (256 frames recorded
    from the independent C++ decoder) through scl_decode, 0 mismatches;
 4. scl_decode == plain PyTorch version on the card, bit for bit (u,
@@ -46,7 +48,26 @@ non-zero):
    point K2), with the counts set to 0 just before it;
 11. times by CUDA events at B=8192 of each kernel and its plain version,
    each kernel's bound, and the sweep's end-to-end cw/s per backend: all
-   frames over all wall time, and the harness's steady-state rate.
+   frames over all wall time, and the harness's steady-state rate;
+12. bch_sc (N=256 = 16 x 16 eBCH, K=128, SC; BASELINE config 3): the
+   stage kernel stage_down (K6, csrc/stage_down.cu) == its plain version
+   bit for bit for every input i < 15 of the 16x16 kernel at bch_sc's
+   shapes (P, n) = (1, 16), (1, 1), (8, 16), (8, 1), B=8192;
+13. the decode body's l > 2 branch == plain bit for bit: K1, K2, K4, K5
+   (K4/K5 with injected noise) on mixed specs with and without CRC at
+   B=1024, and at bch_sc B=8192: K2 at L=1, K4/K5 at L=1, K1 at L=8; the
+   in-kernel Philox draw at bch_sc (u_true exact, <= 1 frame in 10^4);
+14. the bch_sc sweep through `fused` (K5) at 1.0..3.0 dB, 2^18 frames a
+   point (the size of the record), two-proportion z-test against
+   results/bch_sc_tpu.jsonl at each point, |z| < 4;
+15. bch_sc at 2.0 dB, 4 batches of 8192 on the same keys through `fused`,
+   `torch` (K2) and the hybrid (`big_stage_backend="pallas"`: K6, 105
+   launches a decode): identical counts; `--list-size 8` through `torch`
+   (K1) and the full-mode step (K4, equal to counters mode); each path's
+   launches counted from 0;
+16. times by CUDA events at bch_sc, B=8192 and the preset's 2048: K1 (L=8),
+   K2, K4, K5 (L=1), and K6 as the 105 launches of one hybrid decode, each
+   with its plain version and bound; the hybrid decode's own time.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -81,13 +102,15 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 # counted as two; the decode's compares, min, abs, selects and XORs issue
 # one a lane a cycle, half that rate
 PEAK_ELEM_OPS_PER_S = 67e12 / 2
-SOURCE = "polar_tpu_torch/csrc/scl_decode.cu"
-# kernel -> the TPU kernel (pallas_call site) it replaces
+SCL_SOURCE = "polar_tpu_torch/csrc/scl_decode.cu"
+# kernel -> (its source, the TPU kernel (pallas_call site) it replaces)
 KERNELS = {
-    "scl_decode": "polar_tpu/ops/pallas_scl.py:1493",
-    "scl_decode_traj": "polar_tpu/ops/pallas_scl.py:1523",
-    "scl_mc_traj": "polar_tpu/ops/pallas_scl.py:1397",
-    "scl_mc_counters": "polar_tpu/ops/pallas_scl.py:1374",
+    "scl_decode": (SCL_SOURCE, "polar_tpu/ops/pallas_scl.py:1493"),
+    "scl_decode_traj": (SCL_SOURCE, "polar_tpu/ops/pallas_scl.py:1523"),
+    "scl_mc_traj": (SCL_SOURCE, "polar_tpu/ops/pallas_scl.py:1397"),
+    "scl_mc_counters": (SCL_SOURCE, "polar_tpu/ops/pallas_scl.py:1374"),
+    "stage_down": ("polar_tpu_torch/csrc/stage_down.cu",
+                   "polar_tpu/ops/pallas_stage.py:161"),
 }
 SWEEP_FRAMES = 1 << 20
 SWEEP_SEED = 2026
@@ -95,7 +118,23 @@ SWEEP_REFS = ("sweep_tpu_fused_r3.jsonl", "sweep_tpu.jsonl")
 SWEEP_Z_LIMIT = 4.0
 SWEEP_MIN_REF_ERRORS = 500
 DIFF_LIMIT = 1e-4           # in-kernel Philox: differing frames allowed
+BCH_REF = "bch_sc_tpu.jsonl"    # 262,144 frames a point, 1.0..3.0 dB
+BCH_FRAMES = 1 << 18
+BCH_STEPS = 4                   # batches of each bch_sc route's main path
 FULL_STEPS = 4              # batches of the full-mode step's main path
+
+
+def all_launches() -> dict:
+    """Each kernel's launch count since the counts were last zeroed."""
+    from polar_tpu_torch.ops import cuda_scl, cuda_stage
+    return {**cuda_scl.LAUNCHES, **cuda_stage.LAUNCHES}
+
+
+def zero_launches() -> None:
+    from polar_tpu_torch.ops import cuda_scl, cuda_stage
+    for counts in (cuda_scl.LAUNCHES, cuda_stage.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
@@ -117,32 +156,76 @@ def reference_points() -> list[dict]:
     return out
 
 
+def _xors(t) -> int:
+    """XORs of x' = x T over GF(2) for one vector: weight - 1 a column."""
+    return int(sum(max(int(c.sum()) - 1, 0) for c in np.asarray(t).T))
+
+
+def stage_down_ops(kernel, i: int) -> int:
+    """Least element operations of input i of an l x l kernel (l > 2) for
+    one (path, position), from its coset-adjusted LLRs: i = l-1 a weighted
+    correlation (l multiplies, l - 1 adds); the syndrome trellis per
+    section a sign flip and, per hypothesis, 2 relus and per state 2 adds
+    and a min; the tail table per hypothesis and codeword l sign selects,
+    l - 1 adds and a max, then a subtraction and a halving."""
+    from polar_tpu_torch.ops.cuda_stage import processor
+
+    l = kernel.shape[0]
+    if i == l - 1:
+        return 2 * l - 1
+    proc = processor(kernel)
+    if proc.backend[i] == "trellis":
+        return l * (1 + 2 * (2 + 3 * proc.syn[i][0]))
+    return 2 * (1 << (l - 1 - i)) * 2 * l + 2
+
+
+def inverse_xors(spec, d: int) -> int:
+    """XORs of u = x (K_{d+1} (x) ... (x) K_m)^-1 for one path."""
+    from polar_tpu_torch.ops.program import staged_inverse_kernels
+
+    ns = spec.block_sizes
+    if all(f == 2 for f in spec.factors[d:]):
+        return (ns[d] // 2) * int(math.log2(ns[d]))
+    inv = staged_inverse_kernels(spec)
+    return sum(ns[d] // spec.factors[s] * _xors(inv[s])
+               for s in range(d, len(spec.factors)))
+
+
 def element_ops(spec, P: int, epilogue: bool = True) -> int:
     """Least element operations of one codeword's decode, counted from the
     shapes of the fast-SSCL program, whatever the kernel does beyond them.
     Per path and output element: f 4 (2 abs, min, sign), g 2 (conditional
-    negate, add), UP 1 (xor); per path and input: R0 2 (relu, add), REP 4
-    (two relus, two adds); R1/SPC: a hard decision and an abs per input,
-    the n_min least reliable inputs selected at ceil(log2(n_min + 1))
-    compares per input, one flip per selected position, n/2 log2(n) XORs
-    of re-encode and, for SPC, n XORs of parity. A 2P -> P fork: 2P adds
-    of candidate metrics and 2P log2(2P) compares to rank them (survivors
-    leave in rank order). Epilogue per path (only where the kernel runs
-    it: `epilogue`): one word XOR of a CRC generator mask per unfrozen
-    bit, one compare of the argmin."""
+    negate, add), UP 1 (xor); at an l > 2 stage the coset fold (l sign
+    selects for i > 0), `stage_down_ops`, and UP's GF(2) products; per
+    path and input: R0 2 (relu, add), REP 4 (two relus, two adds); R1/SPC:
+    a hard decision and an abs per input, the n_min least reliable inputs
+    selected at ceil(log2(n_min + 1)) compares per input, one flip per
+    selected position, the XORs of the inverse transform below
+    (`inverse_xors`) and, for SPC, n XORs of parity. A 2P -> P fork: 2P
+    adds of candidate metrics and 2P log2(2P) compares to rank them
+    (survivors leave in rank order). Epilogue per path (only where the
+    kernel runs it: `epilogue`): one word XOR of a CRC generator mask per
+    unfrozen bit, one compare of the argmin."""
     from polar_tpu_torch.ops.program import build_program
+    from polar_tpu_torch.ops.schedule import build_schedule
 
     ns = spec.block_sizes
+    digits = build_schedule(spec).digits
     total = 0
     fork = 2 * P + 2 * P * int(math.log2(2 * P)) if P > 1 else 0
     for op in build_program(spec, scl=P > 1).ops:
         n = ns[op.level]
-        if op.kind == "DOWN_FRESH":
-            total += 4 * P * n
-        elif op.kind == "DOWN_DYN":
-            total += 2 * P * n
+        if op.kind in ("DOWN_FRESH", "DOWN_DYN"):
+            kernel = spec.kernels[op.level - 1]
+            l = kernel.shape[0]
+            if l == 2:
+                total += (4 if op.kind == "DOWN_FRESH" else 2) * P * n
+            else:
+                i = 0 if op.kind == "DOWN_FRESH" else int(digits[op.t0, op.level - 1])
+                total += P * n * ((l if i else 0) + stage_down_ops(kernel, i))
         elif op.kind == "UP":
-            total += P * n
+            total += P * n * (1 if spec.factors[op.level - 1] == 2 else
+                              _xors(spec.kernels[op.level - 1]))
         elif op.kind == "R0":
             total += 2 * P * n
         elif op.kind == "REP":
@@ -154,7 +237,7 @@ def element_ops(spec, P: int, epilogue: bool = True) -> int:
             rounds = (0 if P == 1 else min(P, n - 1)) if spc else min(P - 1, n)
             n_min = rounds + 1 if spc else rounds
             select = n * math.ceil(math.log2(n_min + 1)) if n_min else 0
-            total += (P * (2 * n + select + n_min + (n // 2) * int(math.log2(n))
+            total += (P * (2 * n + select + n_min + inverse_xors(spec, op.level)
                            + (n if spc else 0)) + rounds * fork)
     return total + (P * (spec.n_payload_slots + 1) if epilogue else 0)
 
@@ -164,23 +247,27 @@ def prologue_ops(spec) -> int:
     from the shapes: Philox4x32-10 gives 4 words a call and 2N words are
     drawn, at 10 rounds of 2 multiply-high, 2 multiply-low and 4 XORs (the
     key schedule is shared by the batch); K data bits masked, K CRC mask
-    XORs, N/2 log2(N) encode XORs; Box-Muller per pair of rows: 2 shifts,
-    2 converts, an add, 2 scalings, log, a multiply, sqrt, a multiply,
-    cos, sin, 2 multiplies (transcendentals counted as one operation
-    each); the channel per row: 2x, 1 - 2x, sigma g, an add, the LLR
-    scaling."""
+    XORs, the encode's XORs (`inverse_xors` of the transform itself);
+    Box-Muller per pair of rows: 2 shifts, 2 converts, an add, 2 scalings,
+    log, a multiply, sqrt, a multiply, cos, sin, 2 multiplies
+    (transcendentals counted as one operation each); the channel per row:
+    2x, 1 - 2x, sigma g, an add, the LLR scaling."""
     N, K = spec.N, spec.K
     philox = (2 * N // 4) * 10 * 8
-    return philox + 2 * K + (N // 2) * int(math.log2(N)) + 15 * (N // 2) + 5 * N
+    if all(f == 2 for f in spec.factors):
+        enc = (N // 2) * int(math.log2(N))
+    else:
+        enc = sum(N // f * _xors(k) for f, k in zip(spec.factors, spec.kernels))
+    return philox + 2 * K + enc + 15 * (N // 2) + 5 * N
 
 
 def table_bytes(spec, P: int) -> int:
     """Bytes of the kernels' host tables (op table, span rows, payload
-    rows, CRC masks), each read once."""
+    rows, CRC masks, stage tables), each read once."""
     from polar_tpu_torch.ops.cuda_scl import build_tables
 
     t = build_tables(spec, P)
-    return sum(t[k].nbytes for k in ("ops", "qrow", "pidx", "gmask"))
+    return sum(t[k].nbytes for k in ("ops", "qrow", "pidx", "gmask", "st"))
 
 
 def bound(bytes_moved: int, ops: int) -> dict:
@@ -216,6 +303,256 @@ def fields_equal(a, b) -> tuple[bool, float]:
     return same, err
 
 
+def mixed_spec(factors, K: int, crc, seed: int = 1):
+    """A mixed-kernel spec with a cheap deterministic frozen set (index
+    order plus jitter), the kernel-processing paths being mask-independent
+    (the JAX suite's `_mixed_spec`)."""
+    from polar_tpu_torch.models.polar import CodeSpec
+
+    N = int(np.prod(factors))
+    r = np.random.default_rng(seed)
+    nk = K + (crc.width if crc else 0)
+    mask = np.ones(N, np.uint8)
+    mask[np.argsort(r.random(N) + np.linspace(0, 1, N))[-nk:]] = 0
+    return CodeSpec(N=N, K=K, factors=tuple(factors),
+                    frozen_mask=tuple(int(v) for v in mask), crc=crc)
+
+
+def stage_launch_set(spec, P: int) -> list[tuple[int, int, int]]:
+    """(i, paths, n) of every stage-kernel launch of one hybrid decode: each
+    l > 2 DOWN op with i < l-1 (a stage-1 DOWN_FRESH runs at one path)."""
+    from polar_tpu_torch.ops.program import build_program
+    from polar_tpu_torch.ops.schedule import build_schedule
+
+    digits = build_schedule(spec).digits
+    out = []
+    for op in build_program(spec, scl=P > 1).ops:
+        if op.kind not in ("DOWN_FRESH", "DOWN_DYN"):
+            continue
+        l = spec.factors[op.level - 1]
+        i = 0 if op.kind == "DOWN_FRESH" else int(digits[op.t0, op.level - 1])
+        if l > 2 and i < l - 1:
+            paths = 1 if (op.level == 1 and op.kind == "DOWN_FRESH") else P
+            out.append((i, paths, spec.block_sizes[op.level]))
+    return out
+
+
+def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
+    """Phases 12-16: bch_sc (N=256 = 16 x 16 eBCH, K=128, SC) and mixed
+    specs through the l > 2 code. Fills rows / main_launches for the stage
+    kernel; returns bch_sc's rows and launches of K1/K2/K4/K5."""
+    from polar_tpu_torch.models.polar import CrcSpec
+    from polar_tpu_torch.models.presets import get_preset
+    from polar_tpu_torch.ops import cuda_stage
+    from polar_tpu_torch.ops.cuda_scl import SclDecoder
+    from polar_tpu_torch.ops.mc import build_mc_step, count_errors
+    from polar_tpu_torch.ops.philox import step_seed
+    from polar_tpu_torch.ops.scl import build_scl_decoder
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    from polar_tpu_torch.sim.harness import make_mc_step, run_sweep
+
+    bch = get_preset("bch_sc")
+    bspec = bch.spec
+    K16 = bspec.kernels[0]
+    sgen = torch.Generator(device=dev).manual_seed(16)
+
+    # ---- 12. the stage kernel (K6) == plain, every i < 15 ----
+    n_k6 = 0
+    for paths, n in ((1, 16), (1, 1), (8, 16), (8, 1)):
+        lam = 2.0 * torch.randn((paths, 16, n, BATCH), generator=sgen, device=dev)
+        for i in range(15):
+            fn = cuda_stage.build_down_kernel(K16, i, paths, n)
+            check("stage_down", f"i={i} P={paths} n={n} B={BATCH}", [fn(lam)],
+                  [fn.plain(lam)])
+            n_k6 += 1
+    torch.cuda.synchronize()
+    print(f"stage_down == plain: {n_k6} cases bit-exact (every i < 15 of the "
+          f"16x16 kernel; P, n = (1, 16), (1, 1), (8, 16), (8, 1); B={BATCH}), "
+          f"max_abs_err={err['stage_down']}")
+
+    # ---- 13. the decode body's l > 2 branch == plain ----
+    crc8 = CrcSpec(8, 0x07, 0)
+    cases = []
+    for factors, K, crc, lists in (((16,), 6, None, (1, 4)), ((4, 4), 6, None, (3,)),
+                                   ((16, 2), 12, None, (1, 2)),
+                                   ((2, 16), 10, crc8, (1, 4)),
+                                   ((16, 2, 2), 20, crc8, (8,))):
+        for lsz in lists:
+            cases.append((f"{factors} L={lsz} B=1024", mixed_spec(factors, K, crc),
+                          lsz, 1024, ("K1", "K2", "K4K5")))
+    cases += [(f"bch_sc L=1 B={BATCH}", bspec, 1, BATCH, ("K2", "K4K5")),
+              (f"bch_sc L=8 B={BATCH}", bspec, 8, BATCH, ("K1",))]
+    ngen = torch.Generator(device=dev).manual_seed(256)
+    for what, sp, lsz, b, kernels in cases:
+        x = torch.as_tensor(2.0 * rng.standard_normal((b, sp.N)) + 0.5,
+                            dtype=torch.float32, device=dev)
+        if "K1" in kernels:
+            d = SclDecoder(sp, lsz, dev, select=True)
+            check("scl_decode", what, tuple(d.kernel(x)), tuple(d.plain(x)))
+        if "K2" in kernels:
+            d = SclDecoder(sp, lsz, dev, select=False)
+            traj = d.trajectory(x)
+            check("scl_decode_traj", what, traj, d.plain_trajectory(x))
+            check("scl_decode_traj", what + " epilogue", tuple(d.epilogue(*traj)),
+                  tuple(d.plain(x)))
+        if "K4K5" in kernels:
+            step = build_mc_step(sp, lsz, device=dev)
+            sigma = float(ebn0_to_sigma(2.0, sp.rate))
+            seed = tuple(int(w) for w in rng.integers(0, 2**32, 2))
+            noise = torch.randn((b, sp.N), generator=ngen, device=dev)
+            check("scl_mc_traj", what + " noise in",
+                  step.trajectory(seed, sigma, b, noise),
+                  step.plain_trajectory(seed, sigma, b, noise))
+            check("scl_mc_counters", what + " noise in",
+                  [step.counts(seed, sigma, b, noise)],
+                  [step.plain_counts(seed, sigma, b, noise)])
+    torch.cuda.synchronize()
+    # the in-kernel Philox draw at bch_sc: u_true exact, decisions and
+    # counts at most 1 frame in 10^4 apart (libdevice logf/sinf/cosf)
+    step = build_mc_step(bspec, 1, device=dev)
+    sigma = float(ebn0_to_sigma(2.0, bspec.rate))
+    k4 = step.trajectory((2026, 3), sigma, BATCH)
+    p4 = step.plain_trajectory((2026, 3), sigma, BATCH)
+    k5 = step.counts((2026, 3), sigma, BATCH)
+    p5 = step.plain_counts((2026, 3), sigma, BATCH)
+    if not torch.equal(k4[3], p4[3]):
+        raise SystemExit("scl_mc_traj u_true != plain on bch_sc")
+    differ = int(((k4[0] != p4[0]).any(0).any(0) | (k5 != p5).any(0)).sum())
+    if differ > DIFF_LIMIT * BATCH:
+        raise SystemExit(f"bch_sc in-kernel Philox: {differ} frames differ")
+    print(f"l > 2 decode body == plain: {len(cases)} specs x kernels bit-exact "
+          f"(mixed (16,), (4,4), (16,2), (2,16) CRC-8, (16,2,2) CRC-8 at B=1024; "
+          f"bch_sc K2 L=1, K4/K5 L=1 noise in, K1 L=8 at B={BATCH}); bch_sc "
+          f"in-kernel Philox: u_true exact, {differ} of {BATCH} frames differ")
+
+    # ---- 14. the bch_sc sweep through the fused step (K5) ----
+    ref = {json.loads(line)["ebn0_db"]: json.loads(line) for line in
+           (ROOT / "results" / BCH_REF).read_text().splitlines()}
+    bsweep = dataclasses.replace(bch, ebn0_grid=tuple(sorted(ref)))
+    bch_launches = {}
+    recs, wall = main_path(
+        "scl_mc_counters", "bch_sc fused sweep",
+        lambda: run_sweep(bsweep, frames=BCH_FRAMES, per_device_batch=BATCH,
+                          seed=SWEEP_SEED, device=dev, progress=False,
+                          backend="fused"), into=bch_launches)
+    for rec in recs:
+        r = ref[rec["ebn0_db"]]
+        z = two_proportion_z(rec["frame_errors"], rec["frames"],
+                             r["frame_errors"], r["frames"])
+        print(f"sweep bch_sc fused: ebn0={rec['ebn0_db']} frames={rec['frames']} "
+              f"frame_errors={rec['frame_errors']} fer={rec['fer']} "
+              f"ci95={rec['fer_ci95']} z_vs_{BCH_REF}={z} "
+              f"cw_per_s={rec['codewords_per_s']} [{card}]")
+        if abs(z) >= SWEEP_Z_LIMIT:
+            raise SystemExit(f"bch_sc FER at {rec['ebn0_db']} dB differs from "
+                             f"{BCH_REF}: z = {z}")
+    frames = sum(r["frames"] for r in recs)
+    print(f"sweep bch_sc fused end to end: {frames} frames in {wall} s = "
+          f"{frames / wall} cw_per_s (5 points) [{card}]")
+
+    # ---- 15. the three routes on the same keys; each path's launches ----
+    si = bsweep.ebn0_grid.index(2.0)
+    keys = list(range(BCH_STEPS))
+    counted = {}
+    walls = {}
+    for label, kernel, kw in (("fused", "scl_mc_counters", dict(backend="fused")),
+                              ("torch", "scl_decode_traj", dict(backend="torch")),
+                              ("hybrid", "stage_down", dict(
+                                  backend="torch", big_stage_backend="pallas"))):
+        step_fn = make_mc_step(bspec, 1, device=dev, **kw)
+        # the fused window only checks the counts: K5's launches stay the
+        # sweep's
+        into = {"fused": {}, "torch": bch_launches, "hybrid": main_launches}
+        outs, walls[label] = main_path(
+            kernel, f"bch_sc {label} at 2.0 dB ({BCH_STEPS} x {BATCH})",
+            lambda: [step_fn(SWEEP_SEED, si, k, sigma, BATCH) for k in keys],
+            into=into[label])
+        counted[label] = [sum(int(o[f]) for o in outs)
+                          for f in ("frame_errors", "bit_errors")]
+    print(f"bch_sc routes at 2.0 dB on the same keys, (frame_errors, "
+          f"bit_errors): {counted}; end to end cw/s: "
+          f"{ {k: BCH_STEPS * BATCH / w for k, w in walls.items()} } [{card}]")
+    if not counted["torch"] == counted["hybrid"] == counted["fused"]:
+        raise SystemExit("bch_sc routes count different errors")
+    l8 = make_mc_step(bspec, 8, device=dev, backend="torch")
+    outs, _ = main_path("scl_decode", "bch_sc --list-size 8 torch at 2.0 dB",
+                        lambda: [l8(SWEEP_SEED, si, k, sigma, BATCH) for k in keys],
+                        into=bch_launches)
+    full = build_mc_step(bspec, 1, device=dev)
+    fkeys = [step_seed(SWEEP_SEED, si, k, 0) for k in keys]
+    fc, _ = main_path("scl_mc_traj", "bch_sc full-mode step",
+                      lambda: [[int(t) for t in full(k, sigma, BATCH)[:2]]
+                               for k in fkeys], into=bch_launches)
+    if [sum(c[0] for c in fc), sum(c[1] for c in fc)] != counted["fused"]:
+        raise SystemExit("bch_sc full-mode step counts differ from counters mode")
+    print(f"bch_sc L=8 (K1) at 2.0 dB: frame_errors="
+          f"{sum(int(o['frame_errors']) for o in outs)} of {BCH_STEPS * BATCH}; "
+          f"full mode (K4) == counters mode")
+
+    # ---- 16. times at bch_sc, B = 8192 and the preset's 2048 ----
+    bch_rows = {}
+    hybrid = build_scl_decoder(bspec, 1, device=dev, big_stage_backend="pallas")
+    for b in (BATCH, bch.batch):
+        x = torch.as_tensor(2.0 * rng.standard_normal((b, bspec.N)) + 1.0,
+                            dtype=torch.float32, device=dev)
+        tag = "" if b == BATCH else f"_b{b}"
+        d1 = SclDecoder(bspec, 8, dev, select=True)
+        d2 = SclDecoder(bspec, 1, dev, select=False)
+        nq1, nq8 = len(d2.spans), len(d1.spans)
+        key = step_seed(SWEEP_SEED, 98, 0, 0)
+        timed = {
+            "scl_decode": (lambda: d1.kernel(x), lambda: d1.plain(x),
+                           bound(table_bytes(bspec, 8) + b * (4 * bspec.N + bspec.N + 5),
+                                 b * element_ops(bspec, 8))),
+            "scl_decode_traj": (lambda: d2.trajectory(x), lambda: d2.plain_trajectory(x),
+                                bound(table_bytes(bspec, 1)
+                                      + b * (4 * bspec.N + bspec.N + nq1 + 4),
+                                      b * element_ops(bspec, 1, epilogue=False))),
+            "scl_mc_traj": (lambda: full.trajectory(key, sigma, b),
+                            lambda: full.plain_trajectory(key, sigma, b),
+                            bound(table_bytes(bspec, 1)
+                                  + b * (bspec.N + nq1 + 4 + bspec.N),
+                                  b * (element_ops(bspec, 1, epilogue=False)
+                                       + prologue_ops(bspec)))),
+            "scl_mc_counters": (lambda: step.counts(key, sigma, b),
+                                lambda: step.plain_counts(key, sigma, b),
+                                bound(table_bytes(bspec, 1) + b * 8,
+                                      b * (element_ops(bspec, 1) + prologue_ops(bspec)
+                                           + 2 * bspec.K))),
+        }
+        # the stage kernel: the launches of one hybrid decode, replayed on
+        # inputs of their shapes
+        launches = stage_launch_set(bspec, 1)
+        fns = [(cuda_stage.build_down_kernel(K16, i, paths, n),
+                2.0 * torch.randn((paths, 16, n, b), generator=sgen, device=dev))
+               for i, paths, n in launches]
+        timed["stage_down"] = (
+            lambda: [f(v) for f, v in fns], lambda: [f.plain(v) for f, v in fns],
+            bound(sum(4 * 17 * paths * n * b for _, paths, n in launches),
+                  sum(paths * n * b * stage_down_ops(K16, i)
+                      for i, paths, n in launches)))
+        for name, (kfn, pfn, bd) in timed.items():
+            r = dict(bd, ms=time_ms(kfn, iters=10),
+                     plain_ms=time_ms(pfn, iters=1, warmup=1))
+            shape = f"bch_sc L={8 if name == 'scl_decode' else 1} B={b}"
+            print(f"time: {name} {shape} ms={r['ms']} cw_per_s={b / r['ms'] * 1e3} "
+                  f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
+                  f"({r['bound_by']}: bytes={r['bytes']} {r['t_bytes']} ms, "
+                  f"element_ops={r['ops']} {r['t_ops']} ms) [{card}]")
+            if name == "stage_down" and b == BATCH:
+                rows[name] = r
+            elif name != "stage_down":
+                keep = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                bch_rows.setdefault(name, {}).update(
+                    {k + tag: v for k, v in keep.items()})
+            else:
+                rows[name]["ms" + tag] = r["ms"]
+        hy_ms = time_ms(lambda: hybrid(x), iters=3, warmup=1)
+        print(f"time: hybrid decode (big_stage_backend='pallas') bch_sc L=1 "
+              f"B={b} ms={hy_ms} cw_per_s={b / hy_ms * 1e3} [{card}]")
+    return bch_rows, bch_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=2,
@@ -227,7 +564,7 @@ def main() -> int:
     from polar_tpu_torch.construction.ga import construct_ga
     from polar_tpu_torch.models.polar import CodeSpec, CrcSpec
     from polar_tpu_torch.models.presets import ca_scl
-    from polar_tpu_torch.ops import cuda_scl
+    from polar_tpu_torch.ops import cuda_build, cuda_scl, cuda_stage
     from polar_tpu_torch.ops.crc import crc_append
     from polar_tpu_torch.ops.encode import encode
     from polar_tpu_torch.ops.scl import build_scl_decoder
@@ -249,17 +586,18 @@ def main() -> int:
           f"cuda={torch.version.cuda}")
     print(f"card: {card}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc a source, all started together ----
+    cuda_build.build_all()
     cuda_scl.load_library()
-    info = cuda_scl.build_info
-    print(f"build: {info['seconds']:.2f} s -> {info['library']}")
-    entry = "?"
-    for line in info["ptxas"].splitlines():
-        if "Compiling entry function" in line:
-            entry = next((k for k in sorted(KERNELS, key=len, reverse=True)
-                          if k in line), "?")
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {entry}: {line.strip()}")
+    cuda_stage.load_library()
+    for src, info in cuda_build.build_info.items():
+        print(f"build: {src} {info['seconds']:.2f} s -> {info['library']}")
+        entry = "?"
+        for line in info["ptxas"].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else "?"
+            if "registers" in line or "spill" in line:
+                print(f"ptxas: {entry}: {line.strip()}")
 
     preset = ca_scl()
     spec, L = preset.spec, preset.list_size
@@ -312,8 +650,7 @@ def main() -> int:
           f"(u, payload, crc_ok, pm), max_abs_err={max_err}")
 
     # ---- 5. decode main path end to end, two seeds ----
-    for name in cuda_scl.LAUNCHES:
-        cuda_scl.LAUNCHES[name] = 0
+    zero_launches()
     refs = reference_points()
     frames = errors = 0
     t0 = time.perf_counter()
@@ -340,7 +677,7 @@ def main() -> int:
         errors += seed_errors
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_scl.LAUNCHES)
+    launches = all_launches()
     lo, hi = wilson_ci(errors, frames)
     zs = {r["file"]: two_proportion_z(errors, frames, r["frame_errors"],
                                       r["frames"]) for r in refs}
@@ -496,18 +833,18 @@ def main() -> int:
     # other backends and modes run outside these windows
     main_launches = {}
 
-    def main_path(kernel: str, what: str, fn):
-        for name in cuda_scl.LAUNCHES:
-            cuda_scl.LAUNCHES[name] = 0
+    def main_path(kernel: str, what: str, fn, into=None):
+        into = main_launches if into is None else into
+        zero_launches()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = dict(cuda_scl.LAUNCHES)
+        counts = all_launches()
         print(f"launches: {counts} in the {what} run")
         if counts[kernel] < 1:
             raise SystemExit(f"the {what} run launched no {kernel}")
-        main_launches[kernel] = counts[kernel]
+        into[kernel] = counts[kernel]
         return out, wall
 
     recs, wall_f = main_path(
@@ -632,10 +969,15 @@ def main() -> int:
         ms=time_ms(lambda: counters.counts(key, sigma2, BATCH), iters=20),
         plain_ms=time_ms(lambda: counters.plain_counts(key, sigma2, BATCH),
                          iters=2, warmup=1))
+    bch_rows, bch_launches = bch_phases(dev, card, rng, check, err, main_path,
+                                        rows, main_launches)
+
     for name in KERNELS:
         r = rows[name]
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err[name])
-        shape = "arikan_sc L=1" if name == "scl_decode_traj" else f"ca_scl L={L}"
+        shape = {"scl_decode_traj": "arikan_sc L=1",
+                 "stage_down": "bch_sc L=1, the 105 launches of a decode"
+                 }.get(name, f"ca_scl L={L}")
         print(f"time: {name} {shape} B={BATCH} ms={r['ms']} "
               f"cw_per_s={BATCH / r['ms'] * 1e3} plain_ms={r['plain_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}: bytes={r['bytes']} "
@@ -650,15 +992,15 @@ def main() -> int:
     print(f"sweep steady state (per-point rate, first fetch left out): fused "
           f"mean={sum(fused_rates) / len(fused_rates)} per point={fused_rates}; "
           f"torch={rec_t['codewords_per_s']} (ca_scl 2.0 dB) [{card}]")
-    print("library: no single PyTorch call computes an SCL decode or the "
-          "Monte-Carlo step (library_ms null)")
+    print("library: no single PyTorch call computes an SCL decode, the "
+          "Monte-Carlo step or a trellis/tail-table marginal (library_ms null)")
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
 
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": KERNELS[name],
+        "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1],
         "launches": main_launches[name],
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
@@ -666,7 +1008,8 @@ def main() -> int:
         "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],
         "library_ms": None,
-    } for name in KERNELS]}))
+    }, **({"bch_sc": dict(bch_rows[name], launches=bch_launches[name])}
+          if name in bch_rows else {})) for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

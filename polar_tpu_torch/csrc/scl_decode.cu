@@ -1,4 +1,5 @@
-// CA-SCL decode of Arikan polar codes, one thread block per codeword, and
+// CA-SCL decode of polar codes (Arikan and eBCH kernels), one thread
+// block per codeword, and
 // the fused Monte-Carlo step around it.
 //
 // One decode body (`scl_body`), templated on where the channel LLRs come
@@ -50,8 +51,8 @@
 //   kernels), the op table and the outputs.
 // - The op program is a device table (kind, level, t0, child index) read
 //   at run time, so one compiled kernel serves every Arikan spec.
-// - Tal-Vardy lazy copies: a fork permutes the 3*m*P bytes of path->slot
-//   maps, never the buffers; a write resets its buffer's map.
+// - Tal-Vardy lazy copies: a fork permutes the (1 + l_s)*P bytes a stage
+//   of path->slot maps, never the buffers; a write resets its buffer's map.
 // - A 2P -> P fork is a rank select in one warp: candidate c = bit*P + p
 //   counts the candidates before it by (metric, c), survivors go out in
 //   rank order (== lax.top_k on negated metrics, ties included).
@@ -63,8 +64,39 @@
 //   through every fork as the TPU kernel does (that avoided the genealogy
 //   there). The encode is log2 N XOR butterfly stages in shared memory,
 //   not the TPU's generator matmul.
+//
+// Kernels of size l > 2 (eBCH 4x4 .. 16x16, mixed specs such as bch_sc,
+// N = 16 x 16): a second instance of each kernel (template flag BIG)
+// adds the l > 2 branch of pallas_scl.py (`down_big` :847-935, the l > 2
+// `up` :985-1005, the non-2 `apply_inverse` :1007-1040 and the stagewise
+// Kronecker encode :505-523); Arikan specs keep the instances without it.
+// The buffers follow a per-stage table (StageTab: n_s, offsets, path-map
+// base, the kernel's columns and its inputs' trellis tables), with l_s
+// decision children and 1 + l_s path maps a stage. An l > 2 DOWN op's
+// work is not its P*n positions alone (n = 1 at bch_sc's second stage) but
+// the trellis states or the up to 1,024 tail codewords of each: the body
+// gives each position a group of lanes (csrc/big_stage.cuh), up to the
+// whole block, and reduces the maxima across it. UP is x_k = XOR_j u_j
+// K[j,k]; the R1/SPC inverse and the prologue's encode run stage by stage
+// with the kernels' (inverse) columns as bit masks.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "big_stage.cuh"
+
+using bigstage::BigKernel;
+
+// One stage s of the code (entry 0: the whole code, depth 0);
+// ops/cuda_scl.py `StageTab` mirrors this layout.
+struct StageTab {
+  int n;                     // n_s: block size below the stage
+  int loff;                  // its LLR buffer: float offset
+  int doff;                  // its decision buffers (l_s children): byte offset
+  int mbase;                 // its path maps (rlam, then l_s rdec): byte offset
+  int arikan_below;          // every kernel of stages > s is 2x2
+  unsigned short icol[16];   // column k of K_s^-1: bit j = Kinv[j, k]
+  BigKernel k;               // K_s (l = 0 in entry 0)
+};
 
 // Kernel arguments; ops/cuda_scl.py `SclArgs` mirrors this layout. Outside
 // the anonymous namespace: the extern "C" entry points take it.
@@ -75,6 +107,7 @@ struct SclArgs {
   const short* qrow;         // [N] trajectory span of each u row
   const short* pidx;         // [N] payload slot of each row, -1 frozen
   const unsigned* gmask;     // [K] CRC generator row masks
+  const StageTab* st;        // [m + 1] stage tables
   int8_t* u;                 // [B, N] best path's u (kSelect)
   float* pm;                 // [B] best metric (kSelect); [B, P] (kTrajectory)
   uint8_t* ok;               // [B] best path's CRC pass (kSelect)
@@ -86,6 +119,8 @@ struct SclArgs {
   unsigned seed0, seed1;     // Philox key (kMonteCarlo)
   float sigma;               // channel noise deviation (kMonteCarlo)
   int n_ops, N, m, P, Q, K, W, B;
+  int n_lam, n_dec, n_maps;  // LLR floats, decision bytes, path-map bytes
+  int big;                   // 1: some kernel is l > 2 (the BIG instances)
 };
 
 namespace {
@@ -94,6 +129,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxP = 8;
 constexpr int kMaxRounds = kMaxP + 1;   // SPC extracts up to P + 1 minima
+constexpr int kMaxStages = 17;          // m <= 16: N <= 65536 for 2x2 kernels
+constexpr int kMapsPerThread = 2;       // path maps <= 2 * kThreads
 constexpr float kBig = 1e30f;
 constexpr float kTwoPi = 6.28318530717958647692f;   // float32(2 pi)
 constexpr float kTwoM24 = 5.9604644775390625e-08f;  // 2^-24
@@ -120,6 +157,8 @@ struct Small {
   unsigned char flips[kMaxP][kMaxP];
   unsigned char flipfin[kMaxP][kMaxP];
   unsigned red[kWarps];            // block reductions
+  float redf[kWarps][2];           // l > 2 table maxima across warps
+  int4 stage[kMaxStages];          // n, loff, doff, mbase of each stage
   int best;
 };
 
@@ -214,9 +253,9 @@ __device__ void fork2(int lane, int P, float pm_p, float pen0_p, float pen1_p,
 // reset_base, which becomes the identity. Every thread of the block.
 __device__ void apply_perm(unsigned char* maps, int total, const unsigned char* perm,
                            int P, int reset_base, int tid) {
-  unsigned char v[2];
+  unsigned char v[kMapsPerThread];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < kMapsPerThread; ++k) {
     const int i = tid + k * kThreads;
     if (i < total) {
       const int p = i % P;
@@ -226,9 +265,38 @@ __device__ void apply_perm(unsigned char* maps, int total, const unsigned char* 
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < kMapsPerThread; ++k) {
     const int i = tid + k * kThreads;
     if (i < total) maps[i] = v[k];
+  }
+  __syncthreads();
+}
+
+// Bits b[0..l) at stride `stride` from `x`, as a mask.
+__device__ __forceinline__ unsigned gather_bits(const unsigned char* x, int l,
+                                                int stride) {
+  unsigned mask = 0u;
+  for (int j = 0; j < l; ++j) mask |= (unsigned)(x[j * stride] & 1u) << j;
+  return mask;
+}
+
+// One stage of a Kronecker transform over GF(2) in place: x [pre, l, post]
+// (element (a, j, c) at a*l*post + j*post + c, stride `stride` bytes) ->
+// x'_k = XOR_j x_j T[j, k], column k of T given as bit masks over j, for
+// each of `paths` interleaved vectors (path p at byte offset p). Each
+// thread takes whole columns (p, a, c) of l values, so in place is safe.
+__device__ void kron_stage(unsigned char* x, int stride, int pre, int l,
+                           int post, int paths, const unsigned short* tcol,
+                           int tid) {
+  const int units = pre * post * paths;
+  for (int w = tid; w < units; w += kThreads) {
+    const int p = w % paths;
+    const int ac = w / paths;
+    const int a = ac / post, c = ac % post;
+    unsigned char* base = x + ((a * l * post + c) * stride + p);
+    const unsigned mask = gather_bits(base, l, post * stride);
+    for (int k = 0; k < l; ++k)
+      base[k * post * stride] = (unsigned char)(__popc(mask & tcol[k]) & 1u);
   }
   __syncthreads();
 }
@@ -283,6 +351,7 @@ __device__ int block_sum(int v, Small& sm, int lane, int warp) {
 // The Monte-Carlo prologue of codeword b = blockIdx.x: data bits, CRC,
 // encode, BPSK-AWGN, LLRs into chan[N]; the transmitted u into ut[N]. xb
 // (N bytes) is scratch. Every thread of the block.
+template <bool BIG>
 __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
                             unsigned char* xb, Small& sm, int tid, int lane,
                             int warp) {
@@ -321,15 +390,24 @@ __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
     }
     __syncthreads();
   }
-  // x = u F^{(x)m}: log2 N stages of butterfly XORs
   for (int t = tid; t < N; t += kThreads) xb[t] = ut[t];
   __syncthreads();
-  for (int h = nh; h >= 1; h >>= 1) {
-    for (int e = tid; e < nh; e += kThreads) {
-      const int i = (e / h) * 2 * h + (e % h);
-      xb[i] ^= xb[i + h];
+  if (!BIG || a.st[0].arikan_below) {
+    // x = u F^{(x)m}: log2 N stages of butterfly XORs
+    for (int h = nh; h >= 1; h >>= 1) {
+      for (int e = tid; e < nh; e += kThreads) {
+        const int i = (e / h) * 2 * h + (e % h);
+        xb[i] ^= xb[i + h];
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    // x = u (K_1 (x) ... (x) K_m): one Kronecker stage per kernel
+    for (int s = 1; s <= a.m; ++s) {
+      const StageTab& T = a.st[s];
+      const int l = T.k.l;
+      kron_stage(xb, 1, N / (l * T.n), l, T.n, 1, T.k.kcol, tid);
+    }
   }
   // llr = (2 / sigma^2) * ((1 - 2x) + sigma * gauss); Box-Muller rows
   // [0, N/2) take r cos(th), rows [N/2, N) r sin(th) of the same pair
@@ -354,7 +432,97 @@ __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
   __syncthreads();
 }
 
-template <int SRC, int OUT>
+// The coset-adjusted output LLRs v[k] (k < l) of position j of path p at an
+// l > 2 stage: the parent row with its sign flipped where the prior
+// children u_0..u_{i-1} (through their path maps) give coset bit 1.
+__device__ __forceinline__ void big_view(const BigKernel& K, const float* row,
+                                         int n, int j, int i,
+                                         const unsigned char* dec0,
+                                         const unsigned char* rd, int P, int p,
+                                         float (&v)[bigstage::kMaxL]) {
+  unsigned u = 0u;
+  for (int c = 0; c < i; ++c)
+    u |= (unsigned)dec0[c * P * n + rd[c * P + p] * n + j] << c;
+#pragma unroll
+  for (int k = 0; k < bigstage::kMaxL; ++k) {
+    if (k < K.l) {
+      const float x = row[k * n + j];
+      v[k] = (__popc(u & K.kcol[k]) & 1u) ? -x : x;
+    }
+  }
+}
+
+// DOWN at an l > 2 stage: input i's LLR of every (path, position) into
+// out[P, n]. The whole block; ends with a barrier.
+__device__ void big_down(const BigKernel& K, int i, float* out,
+                         const float* x, const float* par,
+                         const unsigned char* rl, const unsigned char* dec0,
+                         const unsigned char* rd, int P, int n, Small& sm,
+                         int tid, int lane, int warp) {
+  const int l = K.l;
+  const int E = P * n;
+  auto row_of = [&](int p) { return par ? par + rl[p] * l * n : x; };
+  float v[bigstage::kMaxL];
+  if (i == l - 1) {
+    for (int e = tid; e < E; e += kThreads) {
+      const int p = e / n, j = e % n;
+      big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
+      out[e] = bigstage::last_llr(K, v);
+    }
+    __syncthreads();
+    return;
+  }
+  const int S = K.states[i];
+  if (S) {
+    // syndrome trellis: S lanes a position, warp-uniform rounds
+    const int per = kThreads / S;
+    for (int base = 0; base < E; base += per) {
+      const int e0 = base + tid / S;
+      const int e = e0 < E ? e0 : E - 1;
+      const int p = e / n, j = e % n;
+      big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
+      const float r = bigstage::trellis_llr(K, i, v, lane & (S - 1));
+      if (e0 < E && (lane & (S - 1)) == 0) out[e] = r;
+    }
+    __syncthreads();
+    return;
+  }
+  // tail table: G lanes a position share its 2^(l-1-i) columns, up to
+  // the whole block when there are few positions
+  const int C = 1 << (l - 1 - i);
+  int G = 1;
+  while (G < kThreads && G < C && E * G * 2 <= kThreads) G *= 2;
+  const int per = kThreads / G;
+  const int gw = G < 32 ? G : 32;            // lanes of the group in a warp
+  for (int base = 0; base < E; base += per) {
+    const int e0 = base + tid / G;
+    const int e = e0 < E ? e0 : E - 1;
+    const int p = e / n, j = e % n;
+    const int g = tid % G;
+    big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
+    float m0, m1;
+    bigstage::table_max(K, i, v, g, G, m0, m1);
+    m0 = bigstage::group_max(m0, gw);
+    m1 = bigstage::group_max(m1, gw);
+    if (G <= 32) {
+      if (e0 < E && g == 0) out[e] = 0.5f * (m0 - m1);
+    } else {
+      if (lane == 0) { sm.redf[warp][0] = m0; sm.redf[warp][1] = m1; }
+      __syncthreads();
+      if (g == 0 && e0 < E) {
+        for (int w = warp + 1; w < warp + G / 32; ++w) {
+          m0 = fmaxf(m0, sm.redf[w][0]);
+          m1 = fmaxf(m1, sm.redf[w][1]);
+        }
+        out[e] = 0.5f * (m0 - m1);
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+template <int SRC, int OUT, bool BIG>
 __device__ __forceinline__ void scl_body(const SclArgs& a) {
   static_assert(OUT != kCounters || SRC == kMonteCarlo,
                 "counting errors needs the transmitted u");
@@ -362,34 +530,39 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   __shared__ Small sm;
   const int N = a.N, m = a.m, P = a.P, Q = a.Q, K = a.K, W = a.W;
   float* lam = reinterpret_cast<float*>(smem);
-  float* chan = lam + P * (N - 1);                      // kMonteCarlo only
+  float* chan = lam + a.n_lam;                           // kMonteCarlo only
   unsigned char* dec =
       reinterpret_cast<unsigned char*>(chan + (SRC == kMonteCarlo ? N : 0));
-  unsigned char* traj = dec + 2 * P * (N - 1);
+  unsigned char* traj = dec + a.n_dec;
   unsigned char* tperm = traj + N * P;
   unsigned char* sidx = tperm + Q * P;
   unsigned char* maps = sidx + Q * P;
-  unsigned char* ut = maps + 3 * m * P;                 // kMonteCarlo only
-  const int n_maps = 3 * m * P;
+  unsigned char* ut = maps + a.n_maps;                  // kMonteCarlo only
+  const int n_maps = a.n_maps;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  if (tid <= m) {
+    const StageTab& T = a.st[tid];
+    sm.stage[tid] = make_int4(T.n, T.loff, T.doff, T.mbase);
+  }
   const float* x;
   if constexpr (SRC == kMonteCarlo) {
-    mc_prologue(a, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
+    mc_prologue<BIG>(a, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
     x = chan;
   } else {
     x = a.llr + (size_t)blockIdx.x * N;
   }
 
-  // stage s (1..m): block n_s = N >> s; buffers for stages < s come first
-  auto lam_at = [&](int s) { return lam + P * (N - 2 * (N >> s)); };
+  // stage s (1..m): block n_s, LLR buffer P*n_s, l_s decision children of
+  // P*n_s, path maps rlam then rdec of each child (P bytes each)
+  auto lam_at = [&](int s) { return lam + sm.stage[s].y; };
   auto dec_at = [&](int s, int c) {
-    return dec + 2 * P * (N - 2 * (N >> s)) + c * P * (N >> s);
+    return dec + sm.stage[s].z + c * P * sm.stage[s].x;
   };
-  auto rlam = [&](int s) { return maps + 3 * (s - 1) * P; };
-  auto rdec_base = [&](int s, int c) { return (3 * (s - 1) + 1 + c) * P; };
+  auto rlam = [&](int s) { return maps + sm.stage[s].w; };
+  auto rdec_base = [&](int s, int c) { return sm.stage[s].w + (1 + c) * P; };
 
   for (int i = tid; i < n_maps; i += kThreads) maps[i] = (unsigned char)(i % P);
   if (tid < P) sm.pm[tid] = (tid == 0) ? 0.f : kBig;
@@ -399,8 +572,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   for (int o = 0; o < a.n_ops; ++o) {
     const int4 op = a.ops[o];
     const int kind = op.x, lvl = op.y, t0 = op.z, child = op.w;
-    const int ln = m - lvl;
-    const int n = 1 << ln;
+    const int n = sm.stage[lvl].x;
+    const int ln = __ffs(n) - 1;
 
     if (kind == DOWN_FRESH || kind == DOWN_DYN) {
       const int s = lvl;
@@ -409,6 +582,16 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       const unsigned char* rl = (s > 1) ? rlam(s - 1) : nullptr;
       const unsigned char* d0 = dec_at(s, 0);
       const unsigned char* rd0 = maps + rdec_base(s, 0);
+      if constexpr (BIG) {
+        const BigKernel& bk = a.st[s].k;
+        if (bk.l > 2) {
+          big_down(bk, kind == DOWN_FRESH ? 0 : child, out, x, par, rl, d0,
+                   rd0, P, n, sm, tid, lane, warp);
+          if (tid < P) rlam(s)[tid] = (unsigned char)tid;
+          __syncthreads();
+          continue;
+        }
+      }
       for (int e = tid; e < P * n; e += kThreads) {
         const int p = e >> ln, j = e & (n - 1);
         float a, b;
@@ -437,11 +620,32 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 
     if (kind == UP) {
       const int s = lvl;
+      unsigned char* dst = dec_at(s - 1, child);
+      if constexpr (BIG) {
+        const BigKernel& bk = a.st[s].k;
+        const int l = bk.l;
+        if (l > 2) {
+          // x_k = XOR_j u_j K[j, k] of every (path, position)
+          const unsigned char* d0 = dec_at(s, 0);
+          const unsigned char* rd0 = maps + rdec_base(s, 0);
+          for (int e = tid; e < P * n; e += kThreads) {
+            const int p = e >> ln, j = e & (n - 1);
+            unsigned u = 0u;
+            for (int c = 0; c < l; ++c)
+              u |= (unsigned)d0[c * P * n + rd0[c * P + p] * n + j] << c;
+            for (int k = 0; k < l; ++k)
+              dst[p * l * n + k * n + j] =
+                  (unsigned char)(__popc(u & bk.kcol[k]) & 1u);
+          }
+          if (tid < P) maps[rdec_base(s - 1, child) + tid] = (unsigned char)tid;
+          __syncthreads();
+          continue;
+        }
+      }
       const unsigned char* d0 = dec_at(s, 0);
       const unsigned char* d1 = dec_at(s, 1);
       const unsigned char* rd0 = maps + rdec_base(s, 0);
       const unsigned char* rd1 = maps + rdec_base(s, 1);
-      unsigned char* dst = dec_at(s - 1, child);
       for (int e = tid; e < P * n; e += kThreads) {
         const int p = e >> ln, j = e & (n - 1);
         const unsigned char b0 = d0[rd0[p] * n + j];
@@ -593,14 +797,23 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       traj[(t0 + j) * P + p] = xb;
     }
     apply_perm(maps, n_maps, sm.nmap, P, reset, tid);
-    // u = x F^{(x)k}: in-place butterflies over the span's trajectory rows
-    for (int h = n >> 1; h >= 1; h >>= 1) {
-      for (int e = tid; e < P * (n >> 1); e += kThreads) {
-        const int p = e / (n >> 1), k = e % (n >> 1);
-        const int i = (k / h) * 2 * h + (k % h);
-        traj[(t0 + i) * P + p] ^= traj[(t0 + i + h) * P + p];
+    if (!BIG || a.st[d].arikan_below) {
+      // u = x F^{(x)k}: in-place butterflies over the span's trajectory rows
+      for (int h = n >> 1; h >= 1; h >>= 1) {
+        for (int e = tid; e < P * (n >> 1); e += kThreads) {
+          const int p = e / (n >> 1), k = e % (n >> 1);
+          const int i = (k / h) * 2 * h + (k % h);
+          traj[(t0 + i) * P + p] ^= traj[(t0 + i + h) * P + p];
+        }
+        __syncthreads();
       }
-      __syncthreads();
+    } else {
+      // u = x (K_{d+1} (x) ... (x) K_m)^-1, one stage per kernel below
+      for (int s = d + 1; s <= m; ++s) {
+        const StageTab& T = a.st[s];
+        const int l = T.k.l;
+        kron_stage(traj + t0 * P, P, n / (l * T.n), l, T.n, P, T.icol, tid);
+      }
     }
     ++q;
   }
@@ -685,16 +898,30 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 
 // min 3 blocks an SM: ca_scl's ~64 KB of shared memory a block allows 3
 __global__ void __launch_bounds__(kThreads, 3) scl_decode(SclArgs a) {
-  scl_body<kLlrIn, kSelect>(a);
+  scl_body<kLlrIn, kSelect, false>(a);
 }
 __global__ void __launch_bounds__(kThreads, 3) scl_decode_traj(SclArgs a) {
-  scl_body<kLlrIn, kTrajectory>(a);
+  scl_body<kLlrIn, kTrajectory, false>(a);
 }
 __global__ void __launch_bounds__(kThreads, 3) scl_mc_traj(SclArgs a) {
-  scl_body<kMonteCarlo, kTrajectory>(a);
+  scl_body<kMonteCarlo, kTrajectory, false>(a);
 }
 __global__ void __launch_bounds__(kThreads, 3) scl_mc_counters(SclArgs a) {
-  scl_body<kMonteCarlo, kCounters>(a);
+  scl_body<kMonteCarlo, kCounters, false>(a);
+}
+// with l > 2 kernels: bch_sc's decode state is a few KB, so registers set
+// the blocks an SM; ask for 4 (<= 64 registers a thread)
+__global__ void __launch_bounds__(kThreads, 4) scl_decode_big(SclArgs a) {
+  scl_body<kLlrIn, kSelect, true>(a);
+}
+__global__ void __launch_bounds__(kThreads, 4) scl_decode_traj_big(SclArgs a) {
+  scl_body<kLlrIn, kTrajectory, true>(a);
+}
+__global__ void __launch_bounds__(kThreads, 4) scl_mc_traj_big(SclArgs a) {
+  scl_body<kMonteCarlo, kTrajectory, true>(a);
+}
+__global__ void __launch_bounds__(kThreads, 4) scl_mc_counters_big(SclArgs a) {
+  scl_body<kMonteCarlo, kCounters, true>(a);
 }
 
 }  // namespace
@@ -702,23 +929,27 @@ __global__ void __launch_bounds__(kThreads, 3) scl_mc_counters(SclArgs a) {
 extern "C" {
 
 // kernel: 0 scl_decode, 1 scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters
-size_t scl_smem_bytes(int kernel, int N, int m, int P, int Q) {
-  return (size_t)4 * P * (N - 1) + (size_t)2 * P * (N - 1) + (size_t)N * P
-         + (size_t)2 * Q * P + (size_t)3 * m * P
-         + (kernel >= 2 ? (size_t)5 * N : 0);
+size_t scl_smem_bytes(int kernel, const SclArgs* a) {
+  const size_t N = a->N, P = a->P, Q = a->Q;
+  return (size_t)4 * a->n_lam + (size_t)a->n_dec + N * P + 2 * Q * P
+         + (size_t)a->n_maps + (kernel >= 2 ? 5 * N : 0);
 }
 
 int scl_launch(int kernel, const SclArgs* a, void* stream) {
-  static void (*const fns[4])(SclArgs) = {scl_decode, scl_decode_traj,
-                                          scl_mc_traj, scl_mc_counters};
+  static void (*const fns[8])(SclArgs) = {
+      scl_decode, scl_decode_traj, scl_mc_traj, scl_mc_counters,
+      scl_decode_big, scl_decode_traj_big, scl_mc_traj_big,
+      scl_mc_counters_big};
   if (kernel < 0 || kernel > 3 || a->P < 1 || a->P > kMaxP || a->W > 32
-      || a->B < 1 || a->N < 2)
+      || a->B < 1 || a->N < 2 || a->m < 1 || a->m + 1 > kMaxStages
+      || a->n_maps > kMapsPerThread * kThreads)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = scl_smem_bytes(kernel, a->N, a->m, a->P, a->Q);
+  const size_t smem = scl_smem_bytes(kernel, a);
+  void (*const fn)(SclArgs) = fns[kernel + (a->big ? 4 : 0)];
   cudaError_t err = cudaFuncSetAttribute(
-      fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fns[kernel]<<<a->B, kThreads, smem, (cudaStream_t)stream>>>(*a);
+  fn<<<a->B, kThreads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -11,10 +11,12 @@ per codeword):
     scl_mc_traj      K4, the fused Monte-Carlo step's full mode (ops/mc.py);
     scl_mc_counters  K5, its counters mode (ops/mc.py).
 
-This module builds the op table from the fast-SSCL program
-(ops/program.py), compiles the source with nvcc at first use into a shared
-library with a plain C interface under build/ at the repository root
-(git-ignored, keyed by a hash of the source), and loads it with ctypes.
+Each has a second instance for specs with l > 2 kernels (eBCH, mixed),
+chosen at launch. This module builds the op table from the fast-SSCL
+program (ops/program.py) and the per-stage tables, compiles the source
+with nvcc at first use into a shared library with a plain C interface
+under build/ at the repository root (git-ignored; ops/cuda_build.py), and
+loads it with ctypes.
 
 `SclDecoder.kernel(llrs)` is the decode wrapper: a CUDA tensor goes to the
 kernel (or the call raises), a CPU tensor to the plain PyTorch version
@@ -24,27 +26,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 
 from polar_tpu_torch.models.polar import CodeSpec
-from polar_tpu_torch.ops.program import build_program
+from polar_tpu_torch.ops import cuda_build
+from polar_tpu_torch.ops.cuda_stage import MAX_L, BigKernel, big_kernel
+from polar_tpu_torch.ops.program import build_program, staged_inverse_kernels
 from polar_tpu_torch.ops.schedule import build_schedule
 from polar_tpu_torch.ops.scl import (DecodeResult, build_plain_scl_decoder,
                                      check_supported, scl_epilogue,
                                      trajectory_spans)
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "scl_decode.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
+SOURCE = cuda_build.CSRC / "scl_decode.cu"
 
 # kernel name -> its index in scl_launch
 KERNELS = {"scl_decode": 0, "scl_decode_traj": 1, "scl_mc_traj": 2,
@@ -55,61 +50,47 @@ _KIND = {"DOWN_FRESH": 0, "DOWN_DYN": 1, "UP": 2, "R0": 3, "REP": 4,
          "R1": 5, "SPC": 6, "LEAF": 7}
 _LEAF_FROZEN = 8
 _THREADS = 256
+_MAX_MAPS = 2 * _THREADS
+_MAX_STAGES = 17
 
 _lib = None
-build_info: dict = {}
+
+
+class StageTab(ctypes.Structure):
+    """One stage's table; mirrors `StageTab` in the source."""
+    _fields_ = [("n", ctypes.c_int), ("loff", ctypes.c_int),
+                ("doff", ctypes.c_int), ("mbase", ctypes.c_int),
+                ("arikan_below", ctypes.c_int),
+                ("icol", ctypes.c_ushort * MAX_L), ("k", BigKernel)]
 
 
 class SclArgs(ctypes.Structure):
     """The kernels' argument block; mirrors `SclArgs` in the source."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "llr", "noise", "ops", "qrow", "pidx", "gmask", "u", "pm", "ok",
+        "llr", "noise", "ops", "qrow", "pidx", "gmask", "st", "u", "pm", "ok",
         "traj_bit", "traj_perm", "u_true", "counters")]
         + [(name, ctypes.c_uint) for name in ("offmask", "seed0", "seed1")]
         + [("sigma", ctypes.c_float)]
         + [(name, ctypes.c_int) for name in (
-            "n_ops", "N", "m", "P", "Q", "K", "W", "B")])
+            "n_ops", "N", "m", "P", "Q", "K", "W", "B", "n_lam", "n_dec",
+            "n_maps", "big")])
 
 
 _POINTERS = {name for name, kind in SclArgs._fields_ if kind is ctypes.c_void_p}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA decode kernels are built "
-                           "on a machine with the CUDA toolkit")
-    return path
-
-
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library.
-    Fills `build_info` with the build seconds and nvcc's ptxas report."""
+    """Build (once per source hash) and load the kernels' shared library;
+    cuda_build.build_info["scl_decode.cu"] holds the build seconds and
+    nvcc's ptxas report."""
     global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libscl_decode_{key}.so"
-    log = out.with_suffix(".log")
-    t = time.perf_counter()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
-    build_info["seconds"] = time.perf_counter() - t
-    build_info["ptxas"] = log.read_text() if log.exists() else ""
-    build_info["library"] = str(out)
-    lib = ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(cuda_build.build("scl_decode.cu")))
     ci = ctypes.c_int
     lib.scl_launch.argtypes = [ci, ctypes.POINTER(SclArgs), ctypes.c_void_p]
     lib.scl_launch.restype = ci
-    lib.scl_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
+    lib.scl_smem_bytes.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_smem_bytes.restype = ctypes.c_size_t
     lib.scl_args_bytes.argtypes = []
     lib.scl_args_bytes.restype = ci
@@ -122,20 +103,56 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def stage_tables(spec: CodeSpec, P: int):
+    """(StageTab array [m + 1], n_lam, n_dec, n_maps): per stage s its
+    block n_s, the offsets of its LLR buffer (P*n_s floats), its l_s
+    decision children (P*n_s bytes each) and its 1 + l_s path maps (P
+    bytes each), whether the kernels below it are all 2x2, the columns of
+    its kernel's inverse and its kernel's tables (ops/cuda_stage.py)."""
+    m = len(spec.factors)
+    if m + 1 > _MAX_STAGES:
+        raise ValueError(f"{m} stages exceed the kernel's {_MAX_STAGES - 1}")
+    ns = spec.block_sizes
+    inv = staged_inverse_kernels(spec)
+    tabs = (StageTab * (m + 1))()
+    lam = dec = maps = 0
+    for s in range(m + 1):
+        t = tabs[s]
+        t.n = ns[s]
+        t.arikan_below = int(all(f == 2 for f in spec.factors[s:]))
+        if s == 0:
+            continue
+        l = spec.factors[s - 1]
+        t.loff, t.doff, t.mbase = lam, dec, maps
+        lam += P * ns[s]
+        dec += l * P * ns[s]
+        maps += (1 + l) * P
+        ki = inv[s - 1].astype(np.int64)
+        for k in range(l):
+            t.icol[k] = int((ki[:, k] << np.arange(l)).sum())
+        t.k = big_kernel(spec.kernels[s - 1])
+    if maps > _MAX_MAPS:
+        raise ValueError(f"{maps} bytes of path maps exceed the kernel's "
+                         f"{_MAX_MAPS}")
+    return tabs, lam, dec, maps
+
+
 def build_tables(spec: CodeSpec, list_size: int) -> dict:
     """Host tables of the kernels, numpy:
 
     ops  [n_ops, 4] int32: kind, level, t0, child (the digit of t0 that
-         names the buffer an op writes, or reads for DOWN_DYN);
+         names the buffer an op writes, or reads for DOWN_DYN: for a DOWN
+         op, the kernel input i it computes);
     qrow [N] int16: trajectory span of each u row;
     pidx [N] int16: payload index of each row (-1 frozen; < K data, >= K
          CRC);
     gmask [K] int32: CRC generator row k as a bit mask over CRC bits;
-    offmask, Q, K, W: CRC offset mask, span count, info bits, CRC width.
+    st   [m + 1] StageTab bytes (`stage_tables`), uint8;
+    offmask, Q, K, W, n_lam, n_dec, n_maps, big: CRC offset mask, span
+    count, info bits, CRC width, buffer sizes, whether a kernel is l > 2.
     """
     check_supported(spec, list_size)
     P = int(list_size)
-    m = len(spec.factors)
     digits = build_schedule(spec).digits
     frozen = spec.frozen.astype(bool)
     program = build_program(spec, scl=(P > 1))
@@ -166,12 +183,13 @@ def build_tables(spec: CodeSpec, list_size: int) -> dict:
         weights = 1 << np.arange(W, dtype=np.int64)
         gmask[:spec.K] = spec.crc.generator_matrix(spec.K).astype(np.int64) @ weights
         offmask = int(spec.crc.offset_bits(spec.K).astype(np.int64) @ weights)
-    if 3 * m * P > 2 * _THREADS:
-        raise ValueError(f"3*m*P = {3 * m * P} path maps exceed the kernel's "
-                         f"{2 * _THREADS}")
+    tabs, n_lam, n_dec, n_maps = stage_tables(spec, P)
     return {"ops": ops, "qrow": qrow, "pidx": pidx,
             "gmask": gmask.astype(np.uint32).view(np.int32),
-            "offmask": offmask, "Q": q, "K": spec.K, "W": W}
+            "st": np.frombuffer(bytes(tabs), np.uint8).copy(),
+            "offmask": offmask, "Q": q, "K": spec.K, "W": W,
+            "n_lam": n_lam, "n_dec": n_dec, "n_maps": n_maps,
+            "big": int(any(f > 2 for f in spec.factors))}
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -198,7 +216,8 @@ class SclKernels:
             t = dict(self.tables, positions=self.spec.info_positions)
             self._dev_tables[key] = {
                 name: torch.as_tensor(t[name], device=device).contiguous()
-                for name in ("ops", "qrow", "pidx", "gmask", "positions")}
+                for name in ("ops", "qrow", "pidx", "gmask", "st",
+                             "positions")}
         return self._dev_tables[key]
 
     def launch(self, name: str, batch: int, device: torch.device,
@@ -210,15 +229,16 @@ class SclKernels:
         dt = self.device_tables(device)
         t = self.tables
         spec, P = self.spec, self.P
-        m = len(spec.factors)
-        smem = lib.scl_smem_bytes(KERNELS[name], spec.N, m, P, t["Q"])
         fields = {k: _ptr(v) if k in _POINTERS else v
                   for k, v in fields.items()}
         args = SclArgs(ops=_ptr(dt["ops"]), qrow=_ptr(dt["qrow"]),
                        pidx=_ptr(dt["pidx"]), gmask=_ptr(dt["gmask"]),
-                       offmask=t["offmask"], n_ops=int(t["ops"].shape[0]),
-                       N=spec.N, m=m, P=P, Q=t["Q"], K=t["K"], W=t["W"],
-                       B=int(batch), **fields)
+                       st=_ptr(dt["st"]), offmask=t["offmask"],
+                       n_ops=int(t["ops"].shape[0]), N=spec.N,
+                       m=len(spec.factors), P=P, Q=t["Q"], K=t["K"], W=t["W"],
+                       B=int(batch), n_lam=t["n_lam"], n_dec=t["n_dec"],
+                       n_maps=t["n_maps"], big=t["big"], **fields)
+        smem = lib.scl_smem_bytes(KERNELS[name], ctypes.byref(args))
         # the launch (and its cudaFuncSetAttribute) acts on the current
         # device: make it the tensors' device
         with torch.cuda.device(device):

@@ -1,11 +1,12 @@
 """The fused Monte-Carlo step: random data bits -> CRC -> encode ->
 BPSK-AWGN -> LLRs -> CA-SCL decode -> error counts.
 
-Counterpart of polar_tpu/ops/pallas_scl.py build_pallas_mc_step. On the
+Counterpart of polar_tpu/ops/pallas_scl.py build_pallas_mc_step, for
+every spec the decoder takes (Arikan, eBCH and mixed kernels). On the
 card the whole step is one kernel launch per batch (csrc/scl_decode.cu:
-scl_mc_traj in full mode, scl_mc_counters in counters mode); `mc_draw`
-followed by the plain decoder (ops/scl.py) is its plain version, and the
-CPU runs it.
+scl_mc_traj in full mode, scl_mc_counters in counters mode; the encode is
+stagewise Kronecker there); `mc_draw` followed by the plain decoder
+(ops/scl.py) is its plain version, and the CPU runs it.
 
 The random stream (ops/philox.py) is the port's own: word w of codeword
 b is output (w mod 4) of Philox4x32-10 under key `seed` = (seed0, seed1)

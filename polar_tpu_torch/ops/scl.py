@@ -2,9 +2,12 @@
 
 Counterpart of polar_tpu/ops/scl.py in its default configuration (fast
 node program, Fast-SSCL R1/SPC forks, float32, min-sum f, |llr| path
-metric, no genie). It is the plain version of the hand-written CUDA
-decode kernel (ops/cuda_scl.py, csrc/scl_decode.cu): the CPU runs it,
-and the card checks the kernel against it.
+metric, no genie), for Arikan, eBCH (4x4 .. 16x16) and mixed kernels:
+each stage's DOWN and UP go through ops/kernel_proc.py StageProcessor
+(f/g for 2x2, the syndrome trellis or tail table for larger kernels). It
+is the plain version of the hand-written CUDA decode kernels
+(ops/cuda_scl.py, csrc/scl_decode.cu): the CPU runs it, and the card
+checks the kernels against it.
 
 A batch of B codewords x P list paths decodes in lockstep over the
 host-built fast-SSCL op program (ops/program.py). Tal-Vardy lazy copies
@@ -31,15 +34,17 @@ import numpy as np
 import torch
 
 from polar_tpu_torch.models.polar import CodeSpec
-from polar_tpu_torch.ops.program import build_program
+from polar_tpu_torch.ops.kernel_proc import StageProcessor
+from polar_tpu_torch.ops.program import build_program, staged_inverse_kernels
 from polar_tpu_torch.ops.schedule import build_schedule
 from polar_tpu_torch.utils.device import resolve_device
 
 BIG = 1e30   # metric penalty of a CRC failure; initial metric of paths 1..P-1
 MAX_LIST = 8
+KERNEL_SIZES = (2, 4, 8, 16)
+BIG_STAGE_BACKENDS = ("xla", "pallas")
 
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 7: decoder knobs; "
-               "item 6: l > 2 kernels)")
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 7: decoder knobs)"
 
 
 class DecodeResult(NamedTuple):
@@ -51,10 +56,10 @@ class DecodeResult(NamedTuple):
 
 def check_supported(spec: CodeSpec, list_size: int) -> None:
     """Raise for what the port does not decode yet."""
-    if any(f != 2 for f in spec.factors):
+    if any(f not in KERNEL_SIZES for f in spec.factors):
         raise NotImplementedError(
-            f"factors {spec.factors}: kernels of size > 2 (StageProcessor, "
-            "ops/kernel_proc.py) are not ported yet (ROADMAP Queue 1 item 6)")
+            f"factors {spec.factors}: kernel sizes other than "
+            f"{KERNEL_SIZES} (build_bch_kernel's) are not ported")
     if not 1 <= int(list_size) <= MAX_LIST:
         raise ValueError(f"list_size {list_size} outside 1..{MAX_LIST}; "
                          "L=32 comes with the mixed_scl32 slice")
@@ -86,16 +91,34 @@ def fork2(pm: torch.Tensor, pen0: torch.Tensor, pen1: torch.Tensor):
     return vals[:P], c % P, (c // P).to(torch.int8)
 
 
-def apply_inverse(x: torch.Tensor) -> torch.Tensor:
-    """u = x F^{(x)k} for Arikan blocks [P, n, B] (F is self-inverse over
-    GF(2)): butterfly XORs on int8."""
+def apply_inverse(x: torch.Tensor, inverses=None) -> torch.Tensor:
+    """u = x (K_{d+1} (x) ... (x) K_m)^-1 for blocks [P, n, B] int8.
+
+    inverses: the GF(2) inverses of the kernels below, outermost first
+    (ops/program.staged_inverse_kernels); None for Arikan blocks, whose F
+    is self-inverse: butterfly XORs."""
     p_, n, b = x.shape
-    h = n // 2
-    while h >= 1:
-        t = x.reshape(p_, n // (2 * h), 2, h, b)
-        x = torch.stack([t[:, :, 0] ^ t[:, :, 1], t[:, :, 1]], dim=2)
-        x = x.reshape(p_, n, b)
-        h //= 2
+    if inverses is None:
+        h = n // 2
+        while h >= 1:
+            t = x.reshape(p_, n // (2 * h), 2, h, b)
+            x = torch.stack([t[:, :, 0] ^ t[:, :, 1], t[:, :, 1]], dim=2)
+            x = x.reshape(p_, n, b)
+            h //= 2
+        return x
+    pre = 1
+    for ki in inverses:
+        lf = ki.shape[0]
+        t = x.reshape(p_, pre, lf, n // (pre * lf), b)
+        cols = []
+        for k in range(lf):
+            acc = torch.zeros_like(t[:, :, 0])
+            for j in range(lf):
+                if ki[j, k]:
+                    acc = acc ^ t[:, :, j]
+            cols.append(acc)
+        x = torch.stack(cols, dim=2).reshape(p_, n, b)
+        pre *= lf
     return x
 
 
@@ -188,10 +211,11 @@ class _State:
         # index s-1 holds stage s (s = 1..m)
         self.lam = [torch.zeros((P, ns[s], bsz), device=dev)
                     for s in range(1, m + 1)]
-        self.dec = [torch.zeros((2, P, ns[s], bsz), dtype=torch.int8,
-                                device=dev) for s in range(1, m + 1)]
+        self.dec = [torch.zeros((spec.factors[s - 1], P, ns[s], bsz),
+                                dtype=torch.int8, device=dev)
+                    for s in range(1, m + 1)]
         self.rlam = [self.iota for _ in range(m)]
-        self.rdec = [[self.iota, self.iota] for _ in range(m)]
+        self.rdec = [[self.iota] * f for f in spec.factors]
         self.pm = torch.full((P, bsz), BIG, device=dev)
         self.pm[0] = 0.0
         self.traj_bit = torch.zeros((spec.N, P, bsz), dtype=torch.int8,
@@ -208,6 +232,13 @@ class _State:
         `child` of its parent's kernel."""
         self.dec[d - 1][child] = block
         self.rdec[d - 1][child] = self.iota
+
+    def dec_children(self, s: int, count: int) -> torch.Tensor:
+        """Children 0..count-1 of stage s, path-correct, zeros for the
+        rest: [l_s, P, n_s, B] int8."""
+        rows = [self.dec_child(s, j) for j in range(count)]
+        zero = torch.zeros_like(self.dec[s - 1][0])
+        return torch.stack(rows + [zero] * (self.dec[s - 1].shape[0] - count))
 
     def dec_child(self, s: int, j: int) -> torch.Tensor:
         return pgather(self.dec[s - 1][j], self.rdec[s - 1][j])
@@ -230,42 +261,56 @@ def trajectory_spans(spec: CodeSpec, list_size: int) -> list[tuple[int, int]]:
 
 
 def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
-                            trajectory: bool = False):
+                            trajectory: bool = False,
+                            stage_kernel: bool = False):
     """decode(llrs [B, N] float32 tensor) -> DecodeResult, in plain PyTorch
     on the tensor's own device (the CUDA kernel's plain version).
 
     trajectory=True: decode returns the genealogy instead, (traj_bit
     [N, P, B] int8, traj_perm [Q, P, B] int64, pm [P, B] float32), which
     `scl_epilogue` over `trajectory_spans` turns into the DecodeResult (the
-    plain version of the trajectory kernels)."""
+    plain version of the trajectory kernels).
+
+    stage_kernel=True: the l > 2 trellis/table DOWN ops (0 <= i < l-1) run
+    in the CUDA stage kernel (ops/cuda_stage.py) on a CUDA tensor; the
+    rest stays PyTorch. This is the hybrid decoder of
+    `build_scl_decoder(big_stage_backend="pallas")`; on a CPU tensor it is
+    the plain decoder."""
     check_supported(spec, list_size)
     P = int(list_size)
     m = len(spec.factors)
     ns = spec.block_sizes
+    factors = spec.factors
     digits = build_schedule(spec).digits
     frozen = spec.frozen.astype(bool)
     program = build_program(spec, scl=(P > 1))
+    procs = [StageProcessor(k, stage_kernel=stage_kernel) for k in spec.kernels]
+    inv_kernels = staged_inverse_kernels(spec)
+    # per depth d: the inverses of the kernels below, None if all Arikan
+    inverses = [None if all(f == 2 for f in factors[d:]) else
+                [k.astype(np.uint8) for k in inv_kernels[d:]]
+                for d in range(m + 1)]
 
     def down(st: _State, s: int, t0: int, fresh: bool) -> None:
-        n = ns[s]
+        """Input i's LLRs of stage s (f / g for the 2x2 kernel)."""
+        l, n = factors[s - 1], ns[s]
         if s == 1:
-            view = st.lam0.reshape(1, 2, n, -1)
+            # the channel view at P = 1; the result broadcasts over paths
+            view = st.lam0.reshape(1, l, n, -1)
         else:
-            view = pgather(st.lam[s - 2], st.rlam[s - 2]).reshape(P, 2, n, -1)
-        a, b = view[:, 0], view[:, 1]
+            view = pgather(st.lam[s - 2], st.rlam[s - 2]).reshape(P, l, n, -1)
         if fresh:
-            sign = torch.where((a < 0) ^ (b < 0), -1.0, 1.0)
-            llr = sign * torch.minimum(a.abs(), b.abs())
+            llr = procs[s - 1].fresh_llr(view)
         else:
-            d0 = st.dec_child(s, 0)
-            llr = a * (1.0 - 2.0 * d0.to(torch.float32)) + b
+            i = int(digits[t0, s - 1])
+            llr = procs[s - 1].static_llr(i, view, st.dec_children(s, i))
         st.lam[s - 1] = llr.expand(P, n, llr.shape[-1]).contiguous()
         st.rlam[s - 1] = st.iota
 
     def up(st: _State, s: int, t0: int) -> None:
-        d0, d1 = st.dec_child(s, 0), st.dec_child(s, 1)
-        x = torch.cat([d0 ^ d1, d1], dim=1)                       # [P, n_{s-1}, B]
-        st.write_dec(s - 1, int(digits[t0, s - 2]), x)
+        x = procs[s - 1].reencode(st.dec_children(s, factors[s - 1]))
+        st.write_dec(s - 1, int(digits[t0, s - 2]),
+                     x.reshape(P, ns[s - 1], x.shape[-1]))
 
     def r0(st: _State, d: int, t0: int) -> None:
         lam = st.lam[d - 1]
@@ -301,7 +346,7 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
     def finish_node(st: _State, d: int, t0: int, node_map, pm, xhat) -> None:
         st.apply_perm(node_map)
         st.pm = pm
-        st.write_traj(t0, node_map, apply_inverse(xhat))
+        st.write_traj(t0, node_map, apply_inverse(xhat, inverses[d]))
         st.write_dec(d, int(digits[t0, d - 1]), xhat)
 
     def r1(st: _State, d: int, t0: int) -> None:
@@ -309,7 +354,7 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
         n = ns[d]
         hd = (lam < 0).to(torch.int8)
         if P == 1:
-            st.write_traj(t0, st.iota, apply_inverse(hd))
+            st.write_traj(t0, st.iota, apply_inverse(hd, inverses[d]))
             st.write_dec(d, int(digits[t0, d - 1]), hd)
             return
         # Fast-SSCL: q keep/flip forks on the least reliable positions;
@@ -345,7 +390,7 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
             vals, poss = extract_mins(absl, 1)
             xhat = flip_at(hd, poss[0], par)
             st.pm = st.pm + vals[0] * par.to(torch.float32)
-            st.write_traj(t0, st.iota, apply_inverse(xhat))
+            st.write_traj(t0, st.iota, apply_inverse(xhat, inverses[d]))
             st.write_dec(d, int(digits[t0, d - 1]), xhat)
             return
         q = min(P, n - 1)
@@ -418,22 +463,38 @@ def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",
     """Returns decode(llrs [B, N]) -> DecodeResult on `device`.
 
     The LLRs are moved to `device`. On a CUDA device the decode runs in
-    the hand-written kernel (ops/cuda_scl.py); on the CPU in the plain
+    the hand-written kernels (ops/cuda_scl.py); on the CPU in the plain
     PyTorch version above. Raises RuntimeError when `device` is CUDA and
-    no card is present. The knobs keep the JAX package's names; only
-    their defaults are ported, and any other value raises
-    NotImplementedError.
+    no card is present.
+
+    big_stage_backend: "xla" (default) decodes in the CUDA decode kernels,
+    l > 2 stages included. "pallas" (the JAX package's name, kept so its
+    callers work unchanged) selects the hybrid decoder: the op program in
+    PyTorch tensor ops on `device`, with every l > 2 trellis/table DOWN
+    op (0 <= i < l-1) one launch of the CUDA stage kernel
+    (ops/cuda_stage.py); on the CPU it equals the plain decoder.
+
+    The other knobs keep the JAX package's names; only their defaults are
+    ported, and any other value raises NotImplementedError.
     """
     knobs = {"genie": (genie, False), "fast": (fast, True),
              "fast_r1_scl": (fast_r1_scl, True),
              "llr_dtype": (llr_dtype, torch.float32), "unroll": (unroll, True),
              "f_mode": (f_mode, "minsum"), "pm_mode": (pm_mode, "abs"),
-             "big_stage_backend": (big_stage_backend, "xla"),
              "subtree_backend": (subtree_backend, "none")}
     for name, (val, default) in knobs.items():
         if val != default:
             raise NotImplementedError(f"{name}={val!r} {_NOT_PORTED}")
+    if big_stage_backend not in BIG_STAGE_BACKENDS:
+        raise ValueError(f"unknown big_stage_backend {big_stage_backend!r}")
     dev = resolve_device(device)
+    if big_stage_backend == "pallas":
+        hybrid = build_plain_scl_decoder(spec, list_size, stage_kernel=True)
+
+        def decode(llrs) -> DecodeResult:
+            return hybrid(torch.as_tensor(llrs, dtype=torch.float32,
+                                          device=dev))
+        return decode
     from polar_tpu_torch.ops.cuda_scl import SclDecoder
     return SclDecoder(spec, list_size, dev)
 

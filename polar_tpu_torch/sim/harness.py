@@ -31,7 +31,7 @@ from polar_tpu_torch.models.polar import CodeSpec
 from polar_tpu_torch.models.presets import Preset
 from polar_tpu_torch.ops.mc import build_mc_step, count_errors, mc_draw
 from polar_tpu_torch.ops.philox import step_seed
-from polar_tpu_torch.ops.scl import build_scl_decoder
+from polar_tpu_torch.ops.scl import BIG_STAGE_BACKENDS, build_scl_decoder
 from polar_tpu_torch.sim.channel import ebn0_to_sigma
 from polar_tpu_torch.utils.device import resolve_device
 
@@ -48,11 +48,12 @@ def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
     steps_per_call > 1 chains that many batches per call, sub-step `sub`
     keyed by step_seed(seed, snr_index, rng_step, sub); the counters are
     summed on the device. backend: "torch" (mc_draw + build_scl_decoder)
-    or "fused" (the one-kernel step, build_mc_step counters mode)."""
-    if big_stage_backend != "xla":
-        raise NotImplementedError(
-            f"big_stage_backend={big_stage_backend!r}: kernels of size > 2 "
-            "are not ported yet (ROADMAP Queue 1 item 6)")
+    or "fused" (the one-kernel step, build_mc_step counters mode).
+    big_stage_backend: passed to build_scl_decoder by the "torch" backend
+    ("pallas": the hybrid decoder with the CUDA stage kernel); the "fused"
+    step has its own l > 2 code and ignores it, as in the JAX package."""
+    if big_stage_backend not in BIG_STAGE_BACKENDS:
+        raise ValueError(f"unknown big_stage_backend {big_stage_backend!r}")
     dev = resolve_device(device)
     if backend == "fused":
         fused = build_mc_step(spec, list_size, dev, counters=True)
@@ -61,7 +62,8 @@ def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
             fe, be, _, _ = fused(key, sigma, batch)
             return fe, be
     elif backend == "torch":
-        decode = build_scl_decoder(spec, list_size, device=dev)
+        decode = build_scl_decoder(spec, list_size, device=dev,
+                                   big_stage_backend=big_stage_backend)
 
         def one(key, sigma, batch):
             u_true, llr = mc_draw(spec, key, sigma, batch, dev)

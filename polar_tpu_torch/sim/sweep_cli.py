@@ -6,8 +6,16 @@ Counterpart of polar_tpu/sim/sweep_cli.py, on one device: the card unless
     python -m polar_tpu_torch.sim.sweep_cli --preset sweep --backend fused \
         --frames 1000000 --state sweep_state.json --jsonl results.jsonl
 
-Not ported yet: `--profile` (ROADMAP Queue 1 item 10) and
-`--big-stage pallas` (item 6); both raise NotImplementedError.
+`--big-stage pallas` (the JAX package's name, kept) decodes the `torch`
+backend's frames with the hybrid decoder: the op program in PyTorch on
+the card, every l > 2 trellis/table DOWN op one launch of the CUDA stage
+kernel (ops/cuda_stage.py). For eBCH and mixed presets:
+
+    python -m polar_tpu_torch.sim.sweep_cli --preset bch_sc --backend fused
+    python -m polar_tpu_torch.sim.sweep_cli --preset bch_sc --big-stage pallas
+
+Not ported yet: `--profile` (ROADMAP Queue 1 item 10); it raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,8 +52,10 @@ def main(argv=None):
                         "encode, channel, decode, count) in one kernel; "
                         "both draw the same frames")
     p.add_argument("--big-stage", choices=("xla", "pallas"), default="xla",
-                   help="l>2 kernel-input LLR backend (only xla: l>2 "
-                        "kernels are not ported yet)")
+                   help="l>2 kernel-input LLRs of the torch backend: xla = "
+                        "in the CUDA decode kernel; pallas = the hybrid "
+                        "decoder, one CUDA stage-kernel launch per l>2 "
+                        "DOWN op (the fused backend ignores it)")
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="calls in flight before fetching counters "
                         "(1 = fetch every call)")

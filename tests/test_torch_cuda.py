@@ -1,5 +1,6 @@
 """The CUDA kernels (scl_decode, scl_decode_traj, scl_mc_traj,
-scl_mc_counters) against their plain PyTorch versions, on the card.
+scl_mc_counters, and stage_down) against their plain PyTorch versions, on
+the card, for Arikan, eBCH and mixed-kernel codes.
 
 Run on a machine with an NVIDIA Hopper card (--noconftest: the suite's
 conftest imports JAX, which the port's machine need not have):
@@ -180,6 +181,18 @@ def test_launch_on_a_card_that_is_not_current(cuda):
     _same(step.trajectory((3, 4), 0.8, 256), step.plain_trajectory((3, 4), 0.8, 256))
     assert torch.equal(step.counts((3, 4), 0.8, 256),
                        step.plain_counts((3, 4), 0.8, 256))
+    # the l > 2 instances and the stage kernel
+    from polar_tpu_torch.kernels.bch import build_bch_kernel
+    from polar_tpu_torch.ops import cuda_stage
+    big = _mixed((16, 2), 12, None)
+    xb = torch.as_tensor(2.0 * np.random.default_rng(6).standard_normal((256, 32)),
+                         dtype=torch.float32, device=other)
+    for select in (True, False):
+        dec = cuda_scl.SclDecoder(big, 2, other, select=select)
+        _equal(dec.kernel(xb), dec.plain(xb))
+    fn = cuda_stage.build_down_kernel(build_bch_kernel(16), 7, 2, 4)
+    lam = torch.randn((2, 16, 4, 300), device=other)
+    assert torch.equal(fn(lam), fn.plain(lam))
     torch.cuda.synchronize(other)
 
 
@@ -192,3 +205,104 @@ def test_mc_step_rejects_bad_noise(cuda):
         step((1, 2), 0.8, 4, torch.zeros((4, 8), device=cuda))
     with pytest.raises(ValueError):
         step((1, 2), 0.8, 4, torch.zeros((4, 16), dtype=torch.float64, device=cuda))
+
+
+# ---- l > 2 kernels: the stage kernel (K6) and the body's l > 2 branch ----
+
+def _mixed(factors, K, crc, seed=1):
+    N = int(np.prod(factors))
+    r = np.random.default_rng(seed)
+    nk = K + (crc.width if crc else 0)
+    mask = np.ones(N, np.uint8)
+    mask[np.argsort(r.random(N) + np.linspace(0, 1, N))[-nk:]] = 0
+    return CodeSpec(N=N, K=K, factors=tuple(factors),
+                    frozen_mask=tuple(int(v) for v in mask), crc=crc)
+
+
+_MIXED = [((16,), 6, None), ((4, 4), 6, None), ((8, 2, 4), 30, CrcSpec(8, 0x07, 0)),
+          ((16, 2), 12, None), ((2, 16), 10, CrcSpec(8, 0x07, 0)),
+          ((16, 2, 2), 20, CrcSpec(8, 0x07, 0))]
+
+
+@pytest.mark.parametrize("l", [4, 8, 16])
+def test_stage_kernel_matches_plain(cuda, l):
+    from polar_tpu_torch.kernels.bch import build_bch_kernel
+    from polar_tpu_torch.ops import cuda_stage
+    K = build_bch_kernel(l)
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    for paths, n, B in ((1, 16, 512), (3, 1, 1000), (8, 4, 64)):
+        lam = 2.0 * torch.randn((paths, l, n, B), generator=gen, device=cuda)
+        for quant in (False, True):
+            x = torch.round(lam) if quant else lam
+            for i in range(l - 1):
+                fn = cuda_stage.build_down_kernel(K, i, paths, n)
+                before = cuda_stage.LAUNCHES["stage_down"]
+                got = fn(x)
+                assert cuda_stage.LAUNCHES["stage_down"] == before + 1
+                assert torch.equal(got, fn.plain(x)), (l, i, paths, n, quant)
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8])
+@pytest.mark.parametrize("factors,K,crc", _MIXED)
+def test_big_stage_body_matches_plain(cuda, factors, K, crc, L):
+    spec = _mixed(factors, K, crc)
+    rng = np.random.default_rng(spec.N + L)
+    x = torch.as_tensor(2.0 * rng.standard_normal((256, spec.N)) + 0.5,
+                        dtype=torch.float32, device=cuda)
+    for select in (True, False):
+        dec = cuda_scl.SclDecoder(spec, L, cuda, select=select)
+        _equal(dec.kernel(x), dec.plain(x))
+        if not select:
+            _same(dec.trajectory(x), dec.plain_trajectory(x))
+
+
+@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("factors,K,crc", _MIXED)
+def test_big_stage_mc_kernels_match_plain(cuda, factors, K, crc, L):
+    from polar_tpu_torch.ops.mc import build_mc_step
+    spec = _mixed(factors, K, crc)
+    step = build_mc_step(spec, L, device=cuda)
+    rng = np.random.default_rng(spec.N * L)
+    noise = torch.as_tensor(rng.standard_normal((256, spec.N)), dtype=torch.float32,
+                            device=cuda)
+    seed = (int(rng.integers(2**32)), int(rng.integers(2**32)))
+    _same(step.trajectory(seed, 0.8, 256, noise),
+          step.plain_trajectory(seed, 0.8, 256, noise))
+    assert torch.equal(step.counts(seed, 0.8, 256, noise),
+                       step.plain_counts(seed, 0.8, 256, noise))
+    # the in-kernel Philox draw: the same transmitted u
+    assert torch.equal(step.trajectory(seed, 0.8, 256)[3],
+                       step.plain_trajectory(seed, 0.8, 256)[3])
+
+
+def test_bch_sc_kernels_and_hybrid(cuda):
+    """bch_sc (N=256, 16x16 eBCH): K2 (L=1) and K1 (L=8) == plain, and
+    the hybrid decoder (one K6 launch per trellis/table DOWN op, 105 a
+    decode) == the kernel decode."""
+    from polar_tpu_torch.models.presets import bch_sc
+    from polar_tpu_torch.ops import cuda_stage
+    spec = bch_sc().spec
+    rng = np.random.default_rng(256)
+    x = torch.as_tensor(2.0 * rng.standard_normal((1024, 256)) + 1.0,
+                        dtype=torch.float32, device=cuda)
+    sc = build_scl_decoder(spec, 1, device=cuda)
+    _equal(sc.kernel(x), sc.plain(x))
+    scl8 = build_scl_decoder(spec, 8, device=cuda)
+    _equal(scl8.kernel(x), scl8.plain(x))
+    hybrid = build_scl_decoder(spec, 1, device=cuda, big_stage_backend="pallas")
+    before = cuda_stage.LAUNCHES["stage_down"]
+    _equal(hybrid(x), sc(x))
+    assert cuda_stage.LAUNCHES["stage_down"] == before + 105
+
+
+def test_bch_sc_sweep_routes_agree_on_card(cuda):
+    from polar_tpu_torch.models.presets import Preset, bch_sc
+    from polar_tpu_torch.sim.harness import run_sweep
+    preset = Preset("bch_sc", bch_sc().spec, 1, (1.5, 2.5), 2048, 512)
+    runs = [run_sweep(preset, device=cuda, progress=False, **kw)
+            for kw in ({"backend": "torch"}, {"backend": "fused"},
+                       {"backend": "torch", "big_stage_backend": "pallas"})]
+    for recs in runs[1:]:
+        for a, b in zip(runs[0], recs):
+            assert a["frame_errors"] == b["frame_errors"] > 0
+            assert a["bit_errors"] == b["bit_errors"]

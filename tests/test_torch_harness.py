@@ -118,8 +118,8 @@ def test_min_frame_errors_stops_early():
 def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         _sweep(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _sweep(big_stage_backend="pallas")
+    with pytest.raises(ValueError):
+        _sweep(big_stage_backend="mosaic")
     with pytest.raises(ValueError):
         _sweep(backend="xla")
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -89,10 +89,19 @@ def test_every_smoke_kernel_counts_its_launches():
     """chip_smoke.py's kernel table names only kernels whose wrappers count
     launches, and every kernel of the library is in it."""
     import chip_smoke
-    from polar_tpu_torch.ops import cuda_scl
+    from polar_tpu_torch.models.presets import bch_sc
+    from polar_tpu_torch.ops import cuda_build, cuda_scl, cuda_stage
 
-    assert set(chip_smoke.KERNELS) == set(cuda_scl.LAUNCHES) == set(cuda_scl.KERNELS)
-    assert all(v.startswith("polar_tpu/ops/pallas_scl.py:")
-               for v in chip_smoke.KERNELS.values())
-    assert (ROOT / chip_smoke.SOURCE) == cuda_scl.SOURCE
+    assert set(chip_smoke.KERNELS) == \
+        set(cuda_scl.LAUNCHES) | set(cuda_stage.LAUNCHES)
+    assert set(cuda_scl.LAUNCHES) == set(cuda_scl.KERNELS)
+    sources = {name: ROOT / src for name, (src, _) in chip_smoke.KERNELS.items()}
+    assert all(sources[name] == cuda_scl.SOURCE for name in cuda_scl.KERNELS)
+    assert sources["stage_down"] == cuda_stage.SOURCE
+    assert {p.name for p in sources.values()} == set(cuda_build.SOURCES)
+    for name, (_, replaces) in chip_smoke.KERNELS.items():
+        path, line = replaces.split(":")
+        assert "pallas_call" in (ROOT / path).read_text().splitlines()[int(line) - 1]
+    # the stage kernel's launches in one bch_sc hybrid decode
+    assert len(chip_smoke.stage_launch_set(bch_sc().spec, 1)) == 105
 

@@ -15,6 +15,7 @@ import torch
 from polar_tpu.construction import ga as j_ga
 from polar_tpu.kernels import arikan as j_arikan
 from polar_tpu.kernels import bch as j_bch
+from polar_tpu.kernels import trellis as j_trellis
 from polar_tpu.models import polar as j_polar
 from polar_tpu.models import presets as j_presets
 from polar_tpu.ops import crc as j_crc
@@ -28,6 +29,7 @@ from polar_tpu.utils import gf2m as j_gf2m
 from polar_tpu_torch.construction import ga as t_ga
 from polar_tpu_torch.kernels import arikan as t_arikan
 from polar_tpu_torch.kernels import bch as t_bch
+from polar_tpu_torch.kernels import trellis as t_trellis
 from polar_tpu_torch.models import polar as t_polar
 from polar_tpu_torch.models import presets as t_presets
 from polar_tpu_torch.ops import crc as t_crc
@@ -171,6 +173,25 @@ def test_copied_gf2_gf2m_bch_ga_equal():
     for N, k, snr in [(64, 32, 2.0), (1024, 528, 2.0), (256, 100, 0.5)]:
         assert np.array_equal(j_ga.construct_ga(N, k, snr),
                               t_ga.construct_ga(N, k, snr))
+
+
+def test_copied_trellis_builders_equal():
+    """The numpy trellis builders (kernels/trellis.py) on random codes."""
+    rng = np.random.default_rng(4)
+    for _ in range(12):
+        n = int(rng.integers(3, 9))
+        basis = rng.integers(0, 2, (int(rng.integers(1, n)), n)).astype(np.uint8)
+        lo, hi = sorted(int(v) for v in rng.integers(0, n + 1, 2))
+        assert np.array_equal(j_trellis._subcode_basis(basis, lo, hi),
+                              t_trellis._subcode_basis(basis, lo, hi))
+        tj, tt = j_trellis.build_trellis(basis, n), t_trellis.build_trellis(basis, n)
+        assert np.array_equal(tj.trans, tt.trans)
+        assert (tj.s_max, tj.state_profile) == (tt.s_max, tt.state_profile)
+    for l in (4, 8, 16):
+        kb = t_bch.build_bch_kernel(l).tobytes()
+        for i in range(l):
+            assert j_trellis.tail_syndrome_cols(kb, l, i) == \
+                t_trellis.tail_syndrome_cols(kb, l, i)
 
 
 @pytest.mark.parametrize("name", sorted(j_presets.PRESETS))

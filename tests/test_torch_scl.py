@@ -21,6 +21,7 @@ from polar_tpu.models import presets as j_presets
 from polar_tpu.models.polar import CodeSpec as JCodeSpec
 from polar_tpu.models.polar import CrcSpec as JCrcSpec
 from polar_tpu.ops.scl import build_scl_decoder as j_build_scl_decoder
+from polar_tpu_torch.models import polar as t_polar
 from polar_tpu_torch.models import presets as t_presets
 from polar_tpu_torch.models.polar import spec_from_reference
 from polar_tpu_torch.ops import scl as t_scl
@@ -154,13 +155,17 @@ def test_unported_options_raise():
     for kw in ({"genie": True}, {"fast": False}, {"unroll": False},
                {"f_mode": "exact"}, {"pm_mode": "smooth"},
                {"llr_dtype": torch.bfloat16}, {"subtree_backend": "pallas"},
-               {"big_stage_backend": "pallas"}, {"fast_r1_scl": False}):
+               {"fast_r1_scl": False}):
         with pytest.raises(NotImplementedError):
             t_scl.build_scl_decoder(spec, 2, device="cpu", **kw)
     with pytest.raises(ValueError):
         t_scl.build_scl_decoder(spec, 9, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        t_scl.build_scl_decoder(t_presets.bch_sc().spec, 1, device="cpu")
+    with pytest.raises(ValueError):
+        t_scl.build_scl_decoder(spec, 2, device="cpu", big_stage_backend="mosaic")
+    with pytest.raises(NotImplementedError, match="kernel sizes"):
+        t_scl.build_scl_decoder(
+            t_polar.CodeSpec(N=3, K=1, factors=(3,), frozen_mask=(1, 1, 0)), 1,
+            device="cpu")
     dec = t_scl.build_scl_decoder(spec, 2, device="cpu")
     with pytest.raises(ValueError):
         dec(np.zeros((4, 8), np.float32))
