@@ -6,9 +6,11 @@ Main paths: the flagship `ca_scl` code (N=1024, K=512 + CRC-16, Arikan,
 list size 8) decoded at B=8192 codewords per call through the
 hand-written CUDA kernels of polar_tpu_torch/csrc/scl_decode.cu; the
 Monte-Carlo FER sweep of the `sweep` preset (ca_scl on the 8-point Eb/N0
-grid) through polar_tpu_torch.sim.harness; and the eBCH code `bch_sc`
+grid) through polar_tpu_torch.sim.harness; the eBCH code `bch_sc`
 through the same kernels' l > 2 branch, the fused sweep, and the hybrid
-decoder with the stage kernel of polar_tpu_torch/csrc/stage_down.cu.
+decoder with the stage kernel of polar_tpu_torch/csrc/stage_down.cu; and
+`mixed_scl32` (N=4096, L=32) through the subtree kernel of
+scl_decode.cu, one launch a depth-1 child.
 Phases (any failure exits non-zero):
 
 1. device: name, count, nvidia-smi name and power limit;
@@ -67,7 +69,32 @@ Phases (any failure exits non-zero):
    launches counted from 0;
 16. times by CUDA events at bch_sc, B=8192 and the preset's 2048: K1 (L=8),
    K2, K4, K5 (L=1), and K6 as the 105 launches of one hybrid decode, each
-   with its plain version and bound; the hybrid decode's own time.
+   with its plain version and bound; the hybrid decode's own time;
+17. list capacity 32: K1, K2, K4, K5 == plain bit for bit at L = 16 and 32
+   on small Arikan and mixed specs; K1 and K2 timed at L=32, B=8192;
+18. the subtree kernel scl_subtree (K3, one depth-1 child a launch) ==
+   its plain version bit for bit on every child of small Arikan and mixed
+   specs at L = 1, 4, 32, on path-bound inputs with diverged metrics;
+19. mixed_scl32 (N=4096 = 16 x 16 x 2^4, K=2048 + CRC-16, L=32; BASELINE
+   config 4) at the preset's batch 256 and 1.25 dB: one decode through the
+   K3 route (`subtree_backend="pallas"`, `big_stage_backend="pallas"`)
+   launches 13 K3 and 15 K6; K3 == plain on the 13 children's inputs
+   captured from it; the route == the hybrid without K3 == the plain route
+   (u, payload, crc_ok, pm);
+20. results/golden_mixed_scl_b128.npz (128 frames of N=512, (16,2,2,2,2,2),
+   L=8, from the independent C++ decoder) through K1 and the K3 route,
+   0 mismatches;
+21. the FER of mixed_scl32 at 1.25 dB through the K3 route (`run_sweep`,
+   `torch` backend, 2^15 frames at B=256: cut from the record's 2^17 for
+   time), the main path of K3, its launches counted from 0; its z against
+   results/mixed_scl32_tpu_r3.jsonl is printed and must be < 4 (not worse
+   than the record; the record is ~10x worse than the port's decoder,
+   ROADMAP Queue 3); the hybrid counts the same errors on the sweep's
+   first 4 batches; on the sweep's frames, frame errors fall with the list
+   size: L=8 (K1) > L=16 (K1, capacity 32) > L=32 (the K3 route);
+22. times at mixed_scl32, B=256 and 2048: the 13 K3 launches, the 15 outer
+   K6 launches (each with plain version and bound) and the whole decode
+   through the K3 route and through the hybrid.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -111,6 +138,7 @@ KERNELS = {
     "scl_mc_counters": (SCL_SOURCE, "polar_tpu/ops/pallas_scl.py:1374"),
     "stage_down": ("polar_tpu_torch/csrc/stage_down.cu",
                    "polar_tpu/ops/pallas_stage.py:161"),
+    "scl_subtree": (SCL_SOURCE, "polar_tpu/ops/pallas_scl.py:1436"),
 }
 SWEEP_FRAMES = 1 << 20
 SWEEP_SEED = 2026
@@ -122,6 +150,14 @@ BCH_REF = "bch_sc_tpu.jsonl"    # 262,144 frames a point, 1.0..3.0 dB
 BCH_FRAMES = 1 << 18
 BCH_STEPS = 4                   # batches of each bch_sc route's main path
 FULL_STEPS = 4              # batches of the full-mode step's main path
+MIXED_REF = "mixed_scl32_tpu_r3.jsonl"   # 131,072 frames a point, 1.0..1.5 dB
+MIXED_EBN0 = 1.25
+MIXED_FRAMES = 1 << 15      # the FER point through the K3 route (cut from 2^17)
+MIXED_SEED = 2026
+MIXED_BATCH = 256           # the FER point's batch (the preset's)
+MIXED_BATCH_LARGE = 2048    # the second batch timed
+MIXED_SAME_KEYS = 4         # batches decoded by both mixed_scl32 routes
+SMALL_BATCH = 1024          # kernel == plain on small specs (phases 17, 18)
 
 
 def all_launches() -> dict:
@@ -278,18 +314,25 @@ def bound(bytes_moved: int, ops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, reps: int = 1) -> float:
+    """Mean ms of `iters` calls by CUDA events; with reps > 1 the least of
+    `reps` such windows (a window the shared host stalls in reads long:
+    short kernels wait on the Python that launches them)."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / iters
+        best = ms if best is None else min(best, ms)
+    return best
 
 
 def fields_equal(a, b) -> tuple[bool, float]:
@@ -318,16 +361,19 @@ def mixed_spec(factors, K: int, crc, seed: int = 1):
                     frozen_mask=tuple(int(v) for v in mask), crc=crc)
 
 
-def stage_launch_set(spec, P: int) -> list[tuple[int, int, int]]:
+def stage_launch_set(spec, P: int, level: int | None = None
+                     ) -> list[tuple[int, int, int]]:
     """(i, paths, n) of every stage-kernel launch of one hybrid decode: each
-    l > 2 DOWN op with i < l-1 (a stage-1 DOWN_FRESH runs at one path)."""
+    l > 2 DOWN op with i < l-1 (a stage-1 DOWN_FRESH runs at one path);
+    `level`: only the DOWN ops of that stage."""
     from polar_tpu_torch.ops.program import build_program
     from polar_tpu_torch.ops.schedule import build_schedule
 
     digits = build_schedule(spec).digits
     out = []
     for op in build_program(spec, scl=P > 1).ops:
-        if op.kind not in ("DOWN_FRESH", "DOWN_DYN"):
+        if (op.kind not in ("DOWN_FRESH", "DOWN_DYN")
+                or level not in (None, op.level)):
             continue
         l = spec.factors[op.level - 1]
         i = 0 if op.kind == "DOWN_FRESH" else int(digits[op.t0, op.level - 1])
@@ -335,6 +381,289 @@ def stage_launch_set(spec, P: int) -> list[tuple[int, int, int]]:
             paths = 1 if (op.level == 1 and op.kind == "DOWN_FRESH") else P
             out.append((i, paths, spec.block_sizes[op.level]))
     return out
+
+
+def subtree_bound(sub, P: int, batch: int) -> dict:
+    """The least time of one subtree-kernel launch over `batch` codewords
+    of child `sub`: its input block, metrics in and out, span bits and
+    perms, net map and root re-encode, each moved once, plus the tables;
+    the child's program (`element_ops`) and the root re-encode's XORs."""
+    from polar_tpu_torch.ops.scl import trajectory_spans
+
+    N, n1 = sub.N, sub.block_sizes[1]
+    Q = len(trajectory_spans(sub, P))
+    moved = 4 * P * N + 4 * P + N * P + Q * P + P + P * N + 4 * P
+    ops = element_ops(sub, P, epilogue=False) + P * n1 * _xors(sub.kernels[0])
+    return bound(table_bytes(sub, P) + batch * moved, batch * ops)
+
+
+def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
+    """Phases 17-22: list sizes up to 32 in the decode kernels, and
+    mixed_scl32 (N=4096 = 16 x 16 x 2^4, K=2048 + CRC-16, L=32) through
+    the subtree kernel (K3). Fills rows / main_launches for scl_subtree;
+    returns the mixed_scl32 and L=32 numbers of the other kernels."""
+    from polar_tpu_torch.models.polar import CrcSpec
+    from polar_tpu_torch.models.presets import get_preset
+    from polar_tpu_torch.ops import cuda_scl, cuda_stage
+    from polar_tpu_torch.ops.cuda_scl import SclDecoder, SubtreeKernel
+    from polar_tpu_torch.ops.mc import build_mc_step, count_errors, mc_draw
+    from polar_tpu_torch.ops.philox import step_seed
+    from polar_tpu_torch.ops.program import (build_program, subtree_items,
+                                             subtree_spec)
+    from polar_tpu_torch.ops.scl import (build_plain_scl_decoder,
+                                         build_scl_decoder)
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    from polar_tpu_torch.sim.golden import load_golden
+    from polar_tpu_torch.sim.harness import run_sweep
+
+    crc8 = CrcSpec(8, 0x07, 0)
+    extra = {}
+    sgen = torch.Generator(device=dev).manual_seed(320)
+
+    # ---- 17. list capacity 32: K1, K2, K4, K5 == plain on small specs ----
+    small = [mixed_spec((2,) * 7, 56, crc8), mixed_spec((16, 2, 2), 20, crc8),
+             mixed_spec((2, 16, 2), 14, None)]
+    n17 = 0
+    for sp in small:
+        for lsz in (16, 32):
+            what = f"{sp.factors} L={lsz} B={SMALL_BATCH}"
+            x = torch.as_tensor(2.0 * rng.standard_normal((SMALL_BATCH, sp.N)) + 0.5,
+                                dtype=torch.float32, device=dev)
+            d1 = SclDecoder(sp, lsz, dev, select=True)
+            check("scl_decode", what, tuple(d1.kernel(x)), tuple(d1.plain(x)))
+            d2 = SclDecoder(sp, lsz, dev, select=False)
+            traj = d2.trajectory(x)
+            check("scl_decode_traj", what, traj, d2.plain_trajectory(x))
+            check("scl_decode_traj", what + " epilogue", tuple(d2.epilogue(*traj)),
+                  tuple(d2.plain(x)))
+            step = build_mc_step(sp, lsz, device=dev)
+            noise = torch.randn((SMALL_BATCH, sp.N), generator=sgen, device=dev)
+            seed = tuple(int(w) for w in rng.integers(0, 2**32, 2))
+            check("scl_mc_traj", what + " noise in",
+                  step.trajectory(seed, 0.8, SMALL_BATCH, noise),
+                  step.plain_trajectory(seed, 0.8, SMALL_BATCH, noise))
+            check("scl_mc_counters", what + " noise in",
+                  [step.counts(seed, 0.8, SMALL_BATCH, noise)],
+                  [step.plain_counts(seed, 0.8, SMALL_BATCH, noise)])
+            n17 += 1
+    torch.cuda.synchronize()
+    print(f"capacity 32: scl_decode, scl_decode_traj, scl_mc_traj, "
+          f"scl_mc_counters == plain bit for bit on {n17} spec x L cases "
+          f"((2,)*7 CRC-8, (16,2,2) CRC-8, (2,16,2); L = 16, 32; B={SMALL_BATCH})")
+    for sp in small[:2]:
+        x = torch.as_tensor(2.0 * rng.standard_normal((BATCH, sp.N)) + 1.0,
+                            dtype=torch.float32, device=dev)
+        d1 = SclDecoder(sp, 32, dev, select=True)
+        d2 = SclDecoder(sp, 32, dev, select=False)
+        nq = len(d2.spans)
+        for name, fn, pfn, bd in (
+                ("scl_decode", lambda: d1.kernel(x), lambda: d1.plain(x),
+                 bound(table_bytes(sp, 32) + BATCH * (4 * sp.N + sp.N + 5),
+                       BATCH * element_ops(sp, 32))),
+                ("scl_decode_traj", lambda: d2.trajectory(x),
+                 lambda: d2.plain_trajectory(x),
+                 bound(table_bytes(sp, 32)
+                       + BATCH * (4 * sp.N + sp.N * 32 + nq * 32 + 4 * 32),
+                       BATCH * element_ops(sp, 32, epilogue=False)))):
+            r = dict(bd, ms=time_ms(fn, iters=10, reps=3),
+                     plain_ms=time_ms(pfn, 1, 1))
+            key = "x".join(str(f) for f in sp.factors)
+            extra.setdefault(name, {})[f"L32_{key}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            print(f"time: {name} {sp.factors} L=32 B={BATCH} ms={r['ms']} "
+                  f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
+                  f"({r['bound_by']}) [{card}]")
+
+    # ---- 18. the subtree kernel (K3) == plain on small specs ----
+    n18 = 0
+    for factors, K, crc in (((2, 2, 2, 2, 2), 12, None), ((2, 16, 2), 14, crc8),
+                            ((16, 2, 2, 2), 40, crc8)):
+        sp = mixed_spec(factors, K, crc)
+        for lsz in (1, 4, 32):
+            for item in subtree_items(build_program(sp, scl=lsz > 1), sp):
+                if item[0] != "sub":
+                    continue
+                core = SubtreeKernel(subtree_spec(sp, item[2]), lsz)
+                lam = 2.5 * torch.randn((lsz, core.spec.N, SMALL_BATCH), generator=sgen,
+                                        device=dev)
+                pm = 3.0 * torch.rand((lsz, SMALL_BATCH), generator=sgen, device=dev)
+                check("scl_subtree", f"{factors} L={lsz} child t0={item[1]}",
+                      core.kernel(lam, pm), core.plain(lam, pm))
+                n18 += 1
+    torch.cuda.synchronize()
+    print(f"scl_subtree == plain: {n18} children bit-exact (Arikan (2,2,2,2,2), "
+          f"mixed (2,16,2) and (16,2,2,2); L = 1, 4, 32; B={SMALL_BATCH}; path-bound "
+          f"input, diverged metrics), max_abs_err={err['scl_subtree']}")
+
+    # ---- 19. mixed_scl32: the K3 route, the hybrid and the plain route ----
+    mixed = get_preset("mixed_scl32")
+    mspec, P = mixed.spec, mixed.list_size
+    sigma = float(ebn0_to_sigma(MIXED_EBN0, mspec.rate))
+    subs = [it for it in subtree_items(build_program(mspec, scl=True), mspec)
+            if it[0] == "sub"]
+    route = build_scl_decoder(mspec, P, device=dev, subtree_backend="pallas",
+                              big_stage_backend="pallas")
+    hybrid = build_scl_decoder(mspec, P, device=dev, big_stage_backend="pallas")
+    plain = build_plain_scl_decoder(mspec, P)
+
+    def captured(llr):
+        """The route's decode of llr, and the (core, lam1, pm) of each of
+        its subtree-kernel calls."""
+        calls = []
+        call = SubtreeKernel.__call__
+
+        def spy(core, lam1, pm):
+            calls.append((core, lam1.clone(), pm.clone()))
+            return call(core, lam1, pm)
+        SubtreeKernel.__call__ = spy
+        try:
+            out = route(llr)
+        finally:
+            SubtreeKernel.__call__ = call
+        return out, calls
+
+    _, llr = mc_draw(mspec, step_seed(MIXED_SEED, 99, 0, 0), sigma, mixed.batch, dev)
+    zero_launches()
+    out_route, calls = captured(llr)
+    torch.cuda.synchronize()
+    per_decode = all_launches()
+    print(f"launches: {per_decode} in one mixed_scl32 decode through the K3 "
+          f"route (B={mixed.batch})")
+    if (per_decode["scl_subtree"], per_decode["stage_down"]) != (len(subs), 15):
+        raise SystemExit(f"the K3 route launched {per_decode['scl_subtree']} "
+                         f"K3 and {per_decode['stage_down']} K6, not "
+                         f"{len(subs)} and 15")
+    for core, lam1, pm in calls:
+        check("scl_subtree", f"mixed_scl32 child N={core.spec.N} K={core.spec.K}",
+              core.kernel(lam1, pm), core.plain(lam1, pm))
+    out_h = hybrid(llr)
+    out_p = plain(llr)
+    for other, name in ((out_h, "the hybrid"), (out_p, "the plain route")):
+        same, d = fields_equal(out_route, other)
+        if not same:
+            raise SystemExit(f"mixed_scl32: the K3 route != {name} (max abs err {d})")
+    torch.cuda.synchronize()
+    print(f"mixed_scl32 B={mixed.batch} at {MIXED_EBN0} dB: scl_subtree == plain "
+          f"on all {len(calls)} children (inputs captured from the decode); "
+          f"K3 route == hybrid == plain route (u, payload, crc_ok, pm); "
+          f"crc_ok {int(out_route.crc_ok.sum())} of {mixed.batch}")
+
+    # ---- 20. the mixed golden replay through K1 and the K3 route ----
+    gspec, gl, gllrs, u_ref = load_golden(ROOT / "results" / "golden_mixed_scl_b128.npz")
+    for label, kw in (("K1", {}), ("K3 route", dict(subtree_backend="pallas",
+                                                    big_stage_backend="pallas"))):
+        gout = build_scl_decoder(gspec, gl, device=dev, **kw)(gllrs)
+        mism = int((gout.u.cpu().numpy() != u_ref).any(axis=1).sum())
+        print(f"golden mixed replay ({gspec.factors}, L={gl}) through {label}: "
+              f"frames={gllrs.shape[0]} mismatch_frames={mism}")
+        if mism:
+            raise SystemExit(f"golden mixed replay mismatch through {label}")
+
+    # ---- 21. FER through the K3 route: the main path of scl_subtree ----
+    ref = [json.loads(line) for line in
+           (ROOT / "results" / MIXED_REF).read_text().splitlines()
+           if json.loads(line)["ebn0_db"] == MIXED_EBN0][0]
+    point = dataclasses.replace(mixed, ebn0_grid=(MIXED_EBN0,))
+    recs, wall = main_path(
+        "scl_subtree", f"mixed_scl32 K3-route sweep at {MIXED_EBN0} dB",
+        lambda: run_sweep(point, frames=MIXED_FRAMES, per_device_batch=MIXED_BATCH,
+                          seed=MIXED_SEED, device=dev, progress=False,
+                          backend="torch", big_stage_backend="pallas",
+                          subtree_backend="pallas"))
+    rec = recs[0]
+    z = two_proportion_z(rec["frame_errors"], rec["frames"], ref["frame_errors"],
+                         ref["frames"])
+    print(f"sweep mixed_scl32 K3 route: ebn0={MIXED_EBN0} frames={rec['frames']} "
+          f"frame_errors={rec['frame_errors']} bit_errors={rec['bit_errors']} "
+          f"fer={rec['fer']} ci95={rec['fer_ci95']} z_vs_{MIXED_REF}={z} "
+          f"batch={MIXED_BATCH} end_to_end_cw_per_s={rec['frames'] / wall} "
+          f"steady_cw_per_s={rec['codewords_per_s']} [{card}]")
+    # The recorded TPU point is no two-sided yardstick: the port's decoder
+    # equals the JAX package's bit for bit (CPU tests, incl. (16,16,2) at
+    # L=32) and its FER here is ~10x below the record's (ROADMAP Queue 3).
+    # The gates: not worse than the record; the hybrid (the JAX CLI's
+    # route) counts the same errors on the sweep's first keys; and the
+    # list sizes order the FER, L = 8 (K1) > 16 (K1, capacity 32) > 32
+    # (the K3 route), on the sweep's own keys.
+    if z >= SWEEP_Z_LIMIT:
+        raise SystemExit(f"mixed_scl32 FER at {MIXED_EBN0} dB is worse than "
+                         f"{MIXED_REF}: z = {z}")
+    keys = range(MIXED_SAME_KEYS)
+
+    def count(decode, keys):
+        fe = be = 0
+        for k in keys:
+            u_true, llr = mc_draw(mspec, step_seed(MIXED_SEED, 0, k, 0), sigma,
+                                  MIXED_BATCH, dev)
+            c = count_errors(mspec, decode(llr).u, u_true)
+            fe, be = fe + int(c[0].sum()), be + int(c[1].sum())
+        return fe, be
+
+    same_keys = {"K3 route": count(route, keys), "hybrid": count(hybrid, keys)}
+    print(f"mixed_scl32 at {MIXED_EBN0} dB, the sweep's first {MIXED_SAME_KEYS} "
+          f"batches of {MIXED_BATCH}: (frame_errors, bit_errors) {same_keys}")
+    if same_keys["K3 route"] != same_keys["hybrid"]:
+        raise SystemExit("mixed_scl32: the K3 route and the hybrid count "
+                         "different errors on the same keys")
+    by_list = {}
+    for lsz in (8, 16):
+        dec = build_scl_decoder(mspec, lsz, device=dev)
+        by_list[lsz] = count(dec, range(MIXED_FRAMES // MIXED_BATCH))[0]
+    by_list[P] = rec["frame_errors"]
+    print(f"mixed_scl32 frame errors by list size at {MIXED_EBN0} dB on the "
+          f"same {MIXED_FRAMES} frames: {by_list} (L=8, 16 through "
+          f"scl_decode) [{card}]")
+    if not by_list[8] > by_list[16] > by_list[P]:
+        raise SystemExit(f"mixed_scl32 frame errors do not fall with the list "
+                         f"size: {by_list}")
+
+    # ---- 22. times at B = 256 (the preset's) and 2048 ----
+    K16 = mspec.kernels[0]
+    outer = stage_launch_set(mspec, P, level=1)
+    for b in (mixed.batch, MIXED_BATCH_LARGE):
+        tag = "" if b == mixed.batch else f"_b{b}"
+        _, llr = mc_draw(mspec, step_seed(MIXED_SEED, 98, 0, b), sigma, b, dev)
+        _, calls = captured(llr)
+        k3_bound = [subtree_bound(core.spec, P, b) for core, _, _ in calls]
+        r = dict(bound(sum(x["bytes"] for x in k3_bound),
+                       sum(x["ops"] for x in k3_bound)),
+                 ms=time_ms(lambda: [c.kernel(l1, p) for c, l1, p in calls],
+                            iters=3, warmup=1))
+        if b == mixed.batch:
+            r["plain_ms"] = time_ms(lambda: [c.plain(l1, p) for c, l1, p in calls],
+                                    iters=1, warmup=0)
+            rows["scl_subtree"] = r
+        else:
+            rows["scl_subtree"]["ms" + tag] = r["ms"]
+            rows["scl_subtree"]["bound_ms" + tag] = r["bound_ms"]
+        print(f"time: scl_subtree mixed_scl32 L=32, the {len(calls)} launches of "
+              f"a decode, B={b} ms={r['ms']} plain_ms={r.get('plain_ms')} "
+              f"bound_ms={r['bound_ms']} ({r['bound_by']}: bytes={r['bytes']} "
+              f"{r['t_bytes']} ms, element_ops={r['ops']} {r['t_ops']} ms) [{card}]")
+        views = {paths: 2.0 * torch.randn((paths, 16, outer[0][2], b),
+                                          generator=sgen, device=dev)
+                 for paths in {p for _, p, _ in outer}}
+        fns = [(cuda_stage.build_down_kernel(K16, i, paths, n), views[paths])
+               for i, paths, n in outer]
+        r6 = dict(bound(sum(4 * 17 * paths * n * b for _, paths, n in outer),
+                        sum(paths * n * b * stage_down_ops(K16, i)
+                            for i, paths, n in outer)),
+                  ms=time_ms(lambda: [f(v) for f, v in fns], iters=3, warmup=1))
+        if b == mixed.batch:
+            r6["plain_ms"] = time_ms(lambda: [f.plain(v) for f, v in fns], 1, 0)
+        extra.setdefault("stage_down", {}).update(
+            {k + tag: r6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+             if k in r6})
+        print(f"time: stage_down mixed_scl32, the {len(outer)} outer launches of a "
+              f"decode, B={b} ms={r6['ms']} plain_ms={r6.get('plain_ms')} "
+              f"bound_ms={r6['bound_ms']} ({r6['bound_by']}) [{card}]")
+        for label, fn in (("K3 route", route), ("hybrid", hybrid)):
+            ms = time_ms(lambda: fn(llr), iters=2, warmup=1)
+            key = "route" if fn is route else "hybrid"
+            extra.setdefault("scl_subtree", {})[f"{key}_decode_ms{tag}"] = ms
+            print(f"time: mixed_scl32 decode through the {label} B={b} ms={ms} "
+                  f"cw_per_s={b / ms * 1e3} [{card}]")
+    return extra
 
 
 def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
@@ -532,7 +861,7 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
                   sum(paths * n * b * stage_down_ops(K16, i)
                       for i, paths, n in launches)))
         for name, (kfn, pfn, bd) in timed.items():
-            r = dict(bd, ms=time_ms(kfn, iters=10),
+            r = dict(bd, ms=time_ms(kfn, iters=10, reps=3),
                      plain_ms=time_ms(pfn, iters=1, warmup=1))
             shape = f"bch_sc L={8 if name == 'scl_decode' else 1} B={b}"
             print(f"time: {name} {shape} ms={r['ms']} cw_per_s={b / r['ms'] * 1e3} "
@@ -704,7 +1033,7 @@ def main() -> int:
                              f"(max abs err {err})")
     print(f"kernel == plain: ca_scl B={BATCH} and B={2 * BATCH} bit-exact "
           f"(u, payload, crc_ok, pm), max_abs_err={max_err}")
-    ms = time_ms(lambda: dec.kernel(v), iters=20)
+    ms = time_ms(lambda: dec.kernel(v), iters=20, reps=3)
     plain_ms = time_ms(lambda: dec.plain(v), iters=2, warmup=1)
     # one block per codeword: time against batch shows the waves of blocks
     for b in (1024, 2048, 4096, 16384):
@@ -950,7 +1279,7 @@ def main() -> int:
         bound(table_bytes(arikan.spec, 1)
               + BATCH * (4 * arikan.spec.N + arikan.spec.N + nq + 4),
               BATCH * element_ops(arikan.spec, 1, epilogue=False)),
-        ms=time_ms(lambda: sc.trajectory(va), iters=20),
+        ms=time_ms(lambda: sc.trajectory(va), iters=20, reps=3),
         plain_ms=time_ms(lambda: sc.plain_trajectory(va), iters=2, warmup=1))
     ca_traj_ms = time_ms(lambda: ca_traj.trajectory(v), iters=10)
     print(f"kernel: scl_decode_traj ca_scl L={L} B={BATCH} ms={ca_traj_ms} [{card}]")
@@ -960,26 +1289,32 @@ def main() -> int:
         bound(table_bytes(spec, L)
               + BATCH * (spec.N * L + nq * L + 4 * L + spec.N),
               BATCH * (element_ops(spec, L, epilogue=False) + prologue_ops(spec))),
-        ms=time_ms(lambda: full.trajectory(key, sigma2, BATCH), iters=20),
+        ms=time_ms(lambda: full.trajectory(key, sigma2, BATCH), iters=20,
+                   reps=3),
         plain_ms=time_ms(lambda: full.plain_trajectory(key, sigma2, BATCH),
                          iters=2, warmup=1))
     rows["scl_mc_counters"] = dict(
         bound(table_bytes(spec, L) + BATCH * 8,
               BATCH * (element_ops(spec, L) + prologue_ops(spec) + 2 * spec.K)),
-        ms=time_ms(lambda: counters.counts(key, sigma2, BATCH), iters=20),
+        ms=time_ms(lambda: counters.counts(key, sigma2, BATCH), iters=20,
+                   reps=3),
         plain_ms=time_ms(lambda: counters.plain_counts(key, sigma2, BATCH),
                          iters=2, warmup=1))
     bch_rows, bch_launches = bch_phases(dev, card, rng, check, err, main_path,
                                         rows, main_launches)
+    mixed_rows = mixed_phases(dev, card, rng, check, err, main_path, rows,
+                              main_launches)
 
     for name in KERNELS:
         r = rows[name]
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err[name])
         shape = {"scl_decode_traj": "arikan_sc L=1",
-                 "stage_down": "bch_sc L=1, the 105 launches of a decode"
+                 "stage_down": "bch_sc L=1, the 105 launches of a decode",
+                 "scl_subtree": "mixed_scl32 L=32, the 13 launches of a decode"
                  }.get(name, f"ca_scl L={L}")
-        print(f"time: {name} {shape} B={BATCH} ms={r['ms']} "
-              f"cw_per_s={BATCH / r['ms'] * 1e3} plain_ms={r['plain_ms']} "
+        b = MIXED_BATCH if name == "scl_subtree" else BATCH
+        print(f"time: {name} {shape} B={b} ms={r['ms']} "
+              f"cw_per_s={b / r['ms'] * 1e3} plain_ms={r['plain_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}: bytes={r['bytes']} "
               f"{r['t_bytes']} ms, element_ops={r['ops']} {r['t_ops']} ms) "
               f"launches={main_launches[name]} [{card}]")
@@ -993,7 +1328,8 @@ def main() -> int:
           f"mean={sum(fused_rates) / len(fused_rates)} per point={fused_rates}; "
           f"torch={rec_t['codewords_per_s']} (ca_scl 2.0 dB) [{card}]")
     print("library: no single PyTorch call computes an SCL decode, the "
-          "Monte-Carlo step or a trellis/tail-table marginal (library_ms null)")
+          "Monte-Carlo step, a depth-1 child's list decode or a "
+          "trellis/tail-table marginal (library_ms null)")
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
 
     print(json.dumps({"kernels": [dict({
@@ -1009,7 +1345,10 @@ def main() -> int:
         "bound_by": rows[name]["bound_by"],
         "library_ms": None,
     }, **({"bch_sc": dict(bch_rows[name], launches=bch_launches[name])}
-          if name in bch_rows else {})) for name in KERNELS]}))
+          if name in bch_rows else {}),
+        **({"mixed_scl32": mixed_rows[name]} if name in mixed_rows else {}),
+        **({"b2048": {k: rows[name][k] for k in ("ms_b2048", "bound_ms_b2048")}}
+           if name == "scl_subtree" else {})) for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -18,7 +18,31 @@
 //                    transmitted u (K4, `core_mc`, mc=True);
 //   scl_mc_counters  Monte-Carlo prologue -> per-codeword frame error and
 //                    bit errors on the data rows (K5, `core_cnt`,
-//                    mc=True, counters=True).
+//                    mc=True, counters=True);
+//   scl_subtree      one depth-1 child of a code decoded on its own (K3,
+//                    `core_sub`, subtree=True), for codes whose state does
+//                    not fit a block (mixed_scl32: ~330 KB a codeword):
+//                    path-bound input block [P, N] and metrics in; span
+//                    bits, span perms, the net survival map, the root
+//                    re-encode and the metrics out (ops/scl.py
+//                    build_plain_subtree states the contract).
+//
+// List capacity: every kernel has an instance for P <= 8 and one for
+// P <= 32 (template CAP), chosen at launch. Capacity 8 ranks the 2P fork
+// candidates one a lane and keeps the R1/SPC minima's positions in
+// registers; capacity 32 ranks two candidates a lane (c = lane, lane + 32)
+// and reads the positions back from shared memory, with a ~10 KB `Small`.
+//
+// The subtree kernel's stage-1 DOWNs read row netmap[p] of the input
+// block: netmap, one more P-byte map after the stage maps, starts as the
+// identity and every fork composes it like the others (the regression
+// tests/test_subtree.py pins for the JAX kernel). One compiled instance
+// serves every child: the op program is a device table. What bounds it:
+// operations. A mixed_scl32 child (16x16 eBCH over four 2x2 stages,
+// N = 256, L = 32) moves ~57 KB a codeword but needs ~71 M element
+// operations, most of them in its 16 stage-1 DOWN ops (tail tables of up
+// to 1,024 codewords for 512 path-positions); the body spreads each DOWN
+// over the block as above, and the state (~24 KB) stays in shared memory.
 //
 // The Monte-Carlo prologue (pallas_scl.py:457-543) draws the data bits and
 // the uniforms from Philox4x32-10 (ops/philox.py pins the stream), appends
@@ -101,7 +125,7 @@ struct StageTab {
 // Kernel arguments; ops/cuda_scl.py `SclArgs` mirrors this layout. Outside
 // the anonymous namespace: the extern "C" entry points take it.
 struct SclArgs {
-  const float* llr;          // [B, N] channel LLRs (kLlrIn)
+  const float* llr;          // [B, N] channel LLRs (kLlrIn); [B, P, N] (kPathBound)
   const float* noise;        // [B, N] standard normals, or null (kMonteCarlo)
   const int4* ops;           // [n_ops] kind, level, t0, child
   const short* qrow;         // [N] trajectory span of each u row
@@ -115,6 +139,9 @@ struct SclArgs {
   uint8_t* traj_perm;        // [B, Q, P] span survival perms (kTrajectory)
   int8_t* u_true;            // [B, N] transmitted u (kMonteCarlo, kTrajectory)
   int* counters;             // [2, B] frame error, bit errors (kCounters)
+  const float* pm_in;        // [B, P] path metrics at entry (kPathBound)
+  uint8_t* netp;             // [B, P] net survival permutation (kSubtree)
+  uint8_t* xblk;             // [B, P, N] root re-encode (kSubtree)
   unsigned offmask;          // CRC offset mask
   unsigned seed0, seed1;     // Philox key (kMonteCarlo)
   float sigma;               // channel noise deviation (kMonteCarlo)
@@ -127,10 +154,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxP = 8;
-constexpr int kMaxRounds = kMaxP + 1;   // SPC extracts up to P + 1 minima
 constexpr int kMaxStages = 17;          // m <= 16: N <= 65536 for 2x2 kernels
-constexpr int kMapsPerThread = 2;       // path maps <= 2 * kThreads
 constexpr float kBig = 1e30f;
 constexpr float kTwoPi = 6.28318530717958647692f;   // float32(2 pi)
 constexpr float kTwoM24 = 5.9604644775390625e-08f;  // 2^-24
@@ -142,20 +166,30 @@ enum OpKind {
 };
 
 // where the channel LLRs come from / what the kernel writes
-enum Source { kLlrIn = 0, kMonteCarlo = 1 };
-enum Output { kSelect = 0, kTrajectory = 1, kCounters = 2 };
+enum Source { kLlrIn = 0, kMonteCarlo = 1, kPathBound = 2 };
+enum Output { kSelect = 0, kTrajectory = 1, kCounters = 2, kSubtree = 3 };
 
+// Path maps a thread of apply_perm holds: the maps of a list capacity CAP
+// (the instances of capacity 8 and 32) are <= this many times kThreads
+// bytes.
+__host__ __device__ constexpr int maps_per_thread(int cap) {
+  return cap <= 8 ? 2 : 8;
+}
+
+// The node-local state of a list capacity CAP (P <= CAP).
+template <int CAP>
 struct Small {
-  float pm[kMaxP];
-  float vals[kMaxRounds][kMaxP];   // least-reliable |llr| per round, path
-  float s0[kMaxP], s1[kMaxP];      // REP sums
-  float ok[kMaxP];                 // CRC pass per path (0/1)
-  short poss[kMaxRounds][kMaxP];   // their positions
-  unsigned char nmap[kMaxP];       // node-local path map / fork perm
-  unsigned char bit[kMaxP];        // fork bit / parity / eta
-  unsigned char perms[kMaxP][kMaxP];
-  unsigned char flips[kMaxP][kMaxP];
-  unsigned char flipfin[kMaxP][kMaxP];
+  static constexpr int kRounds = CAP + 1;   // SPC extracts up to P + 1 minima
+  float pm[CAP];
+  float vals[kRounds][CAP];        // least-reliable |llr| per round, path
+  float s0[CAP], s1[CAP];          // REP sums
+  float ok[CAP];                   // CRC pass per path (0/1)
+  short poss[kRounds][CAP];        // their positions
+  unsigned char nmap[CAP];         // node-local path map / fork perm
+  unsigned char bit[CAP];          // fork bit / parity / eta
+  unsigned char perms[CAP][CAP];
+  unsigned char flips[CAP][CAP];
+  unsigned char flipfin[CAP][CAP];
   unsigned red[kWarps];            // block reductions
   float redf[kWarps][2];           // l > 2 table maxima across warps
   int4 stage[kMaxStages];          // n, loff, doff, mbase of each stage
@@ -197,65 +231,122 @@ __device__ float warp_tree_sum(const float* v, int n, int positive, int lane) {
 
 // count smallest |v[j]| (j < n) with positions, ascending, ties to the
 // lowest index; an already chosen position counts as kBig. Whole warp.
+// Capacity 8 keeps the chosen positions in registers (the rounds
+// unrolled), capacity 32 reads them back from sm.poss.
+template <int CAP>
 __device__ void warp_extract(const float* v, int n, int count, int lane,
-                             Small& sm, int p) {
-  int chosen[kMaxRounds];
+                             Small<CAP>& sm, int p) {
+  constexpr int kRounds = Small<CAP>::kRounds;
+  auto pick = [&](float& bv, int& bi) {
 #pragma unroll
-  for (int r = 0; r < kMaxRounds; ++r) {
-    if (r < count) {
+    for (int off = 16; off >= 1; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+    }
+  };
+  if constexpr (CAP <= 8) {
+    int chosen[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (r < count) {
+        float bv = __int_as_float(0x7f800000);   // +inf
+        int bi = 0x7fffffff;
+        for (int j = lane; j < n; j += 32) {
+          float val = fabsf(v[j]);
+#pragma unroll
+          for (int c = 0; c < kRounds; ++c)
+            if (c < r && chosen[c] == j) val = kBig;
+          if (val < bv) { bv = val; bi = j; }
+        }
+        pick(bv, bi);
+        chosen[r] = bi;
+        if (lane == 0) { sm.vals[r][p] = bv; sm.poss[r][p] = (short)bi; }
+      }
+    }
+  } else {
+    for (int r = 0; r < count; ++r) {
       float bv = __int_as_float(0x7f800000);   // +inf
       int bi = 0x7fffffff;
       for (int j = lane; j < n; j += 32) {
         float val = fabsf(v[j]);
-#pragma unroll
-        for (int c = 0; c < kMaxRounds; ++c)
-          if (c < r && chosen[c] == j) val = kBig;
+        for (int c = 0; c < r; ++c)
+          if (sm.poss[c][p] == j) val = kBig;
         if (val < bv) { bv = val; bi = j; }
       }
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, bv, off);
-        const int oi = __shfl_xor_sync(kFull, bi, off);
-        if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-      }
-      chosen[r] = bi;
+      pick(bv, bi);
       if (lane == 0) { sm.vals[r][p] = bv; sm.poss[r][p] = (short)bi; }
+      __syncwarp();
     }
   }
 }
 
 // 2P -> P fork, warp 0, all 32 lanes. Lane p < P holds path p's metric and
 // penalties. Lane r < P gets survivor r: metric, parent path, bit.
+// Candidate c = bit * P + p ranks by (metric, c); capacity 8 holds one
+// candidate a lane (2P <= 16), capacity 32 two (c = lane, lane + 32).
+template <int CAP>
 __device__ void fork2(int lane, int P, float pm_p, float pen0_p, float pen1_p,
                       float& npm, int& nperm, int& nbit) {
-  const int c = lane;
-  const int p = c % P;
-  const int b = c / P;
-  const float vpm = __shfl_sync(kFull, pm_p, p);
-  const float v0 = __shfl_sync(kFull, pen0_p, p);
-  const float v1 = __shfl_sync(kFull, pen1_p, p);
-  const float cand = b ? (vpm + v1) : (vpm + v0);
-  int rank = 0;
-  for (int c2 = 0; c2 < 2 * P; ++c2) {
-    const float o = __shfl_sync(kFull, cand, c2);
-    rank += (o < cand) || (o == cand && c2 < c);
-  }
-  if (c >= 2 * P) rank = 64;
-  npm = 0.f; nperm = 0; nbit = 0;
-  for (int c2 = 0; c2 < 2 * P; ++c2) {
-    const int rk = __shfl_sync(kFull, rank, c2);
-    const float o = __shfl_sync(kFull, cand, c2);
-    if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
+  if constexpr (CAP <= 8) {
+    const int c = lane;
+    const int p = c % P;
+    const int b = c / P;
+    const float vpm = __shfl_sync(kFull, pm_p, p);
+    const float v0 = __shfl_sync(kFull, pen0_p, p);
+    const float v1 = __shfl_sync(kFull, pen1_p, p);
+    const float cand = b ? (vpm + v1) : (vpm + v0);
+    int rank = 0;
+    for (int c2 = 0; c2 < 2 * P; ++c2) {
+      const float o = __shfl_sync(kFull, cand, c2);
+      rank += (o < cand) || (o == cand && c2 < c);
+    }
+    if (c >= 2 * P) rank = 64;
+    npm = 0.f; nperm = 0; nbit = 0;
+    for (int c2 = 0; c2 < 2 * P; ++c2) {
+      const int rk = __shfl_sync(kFull, rank, c2);
+      const float o = __shfl_sync(kFull, cand, c2);
+      if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
+    }
+  } else {
+    const float vpm = __shfl_sync(kFull, pm_p, lane % P);
+    const float v0 = __shfl_sync(kFull, pen0_p, lane % P);
+    const float v1 = __shfl_sync(kFull, pen1_p, lane % P);
+    // the candidate c = lane + 32 is path (lane + 32) % P
+    const int p_hi = (lane + 32) % P;
+    const float wpm = __shfl_sync(kFull, pm_p, p_hi);
+    const float w0 = __shfl_sync(kFull, pen0_p, p_hi);
+    const float w1 = __shfl_sync(kFull, pen1_p, p_hi);
+    const float cand_lo = (lane / P) ? (vpm + v1) : (vpm + v0);
+    const float cand_hi = ((lane + 32) / P) ? (wpm + w1) : (wpm + w0);
+    int rank_lo = 0, rank_hi = 0;
+    for (int c2 = 0; c2 < 2 * P; ++c2) {
+      // c2 < 32 lives in cand_lo, c2 >= 32 in cand_hi (warp-uniform)
+      const float o = __shfl_sync(kFull, c2 < 32 ? cand_lo : cand_hi, c2 & 31);
+      rank_lo += (o < cand_lo) || (o == cand_lo && c2 < lane);
+      rank_hi += (o < cand_hi) || (o == cand_hi && c2 < lane + 32);
+    }
+    // not a candidate: a rank no lane has
+    if (lane >= 2 * P) rank_lo = 1 << 20;
+    if (lane + 32 >= 2 * P) rank_hi = 1 << 20;
+    npm = 0.f; nperm = 0; nbit = 0;
+    for (int c2 = 0; c2 < 2 * P; ++c2) {
+      const int rk = __shfl_sync(kFull, c2 < 32 ? rank_lo : rank_hi, c2 & 31);
+      const float o = __shfl_sync(kFull, c2 < 32 ? cand_lo : cand_hi, c2 & 31);
+      if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
+    }
   }
 }
 
 // maps[i] = old maps[base(i) + perm[p]] for every map, except the map at
 // reset_base, which becomes the identity. Every thread of the block.
+template <int CAP>
 __device__ void apply_perm(unsigned char* maps, int total, const unsigned char* perm,
                            int P, int reset_base, int tid) {
-  unsigned char v[kMapsPerThread];
+  constexpr int kPer = maps_per_thread(CAP);
+  unsigned char v[kPer];
 #pragma unroll
-  for (int k = 0; k < kMapsPerThread; ++k) {
+  for (int k = 0; k < kPer; ++k) {
     const int i = tid + k * kThreads;
     if (i < total) {
       const int p = i % P;
@@ -265,7 +356,7 @@ __device__ void apply_perm(unsigned char* maps, int total, const unsigned char* 
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < kMapsPerThread; ++k) {
+  for (int k = 0; k < kPer; ++k) {
     const int i = tid + k * kThreads;
     if (i < total) maps[i] = v[k];
   }
@@ -303,7 +394,8 @@ __device__ void kron_stage(unsigned char* x, int stride, int pre, int l,
 
 // The suffix-composed flips of `rounds` forks, recorded in sm.perms /
 // sm.flips, in final path indexing (lane p < P).
-__device__ void defer_flips(Small& sm, int rounds, int p) {
+template <int CAP>
+__device__ void defer_flips(Small<CAP>& sm, int rounds, int p) {
   int s = p;
   for (int r = rounds - 1; r >= 0; --r) {
     sm.flipfin[r][p] = sm.flips[r][s];
@@ -324,7 +416,8 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
 }
 
 // XOR / sum of one value per thread over the block; every thread gets it.
-__device__ unsigned block_xor(unsigned v, Small& sm, int lane, int warp) {
+template <int CAP>
+__device__ unsigned block_xor(unsigned v, Small<CAP>& sm, int lane, int warp) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) v ^= __shfl_xor_sync(kFull, v, off);
   if (lane == 0) sm.red[warp] = v;
@@ -336,7 +429,8 @@ __device__ unsigned block_xor(unsigned v, Small& sm, int lane, int warp) {
   return r;
 }
 
-__device__ int block_sum(int v, Small& sm, int lane, int warp) {
+template <int CAP>
+__device__ int block_sum(int v, Small<CAP>& sm, int lane, int warp) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   if (lane == 0) sm.red[warp] = (unsigned)v;
@@ -351,9 +445,9 @@ __device__ int block_sum(int v, Small& sm, int lane, int warp) {
 // The Monte-Carlo prologue of codeword b = blockIdx.x: data bits, CRC,
 // encode, BPSK-AWGN, LLRs into chan[N]; the transmitted u into ut[N]. xb
 // (N bytes) is scratch. Every thread of the block.
-template <bool BIG>
+template <bool BIG, int CAP>
 __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
-                            unsigned char* xb, Small& sm, int tid, int lane,
+                            unsigned char* xb, Small<CAP>& sm, int tid, int lane,
                             int warp) {
   const int N = a.N, K = a.K, nh = a.N >> 1;
   const unsigned b = blockIdx.x;
@@ -457,8 +551,8 @@ __device__ __forceinline__ void big_view(const BigKernel& K, const float* row,
 __device__ void big_down(const BigKernel& K, int i, float* out,
                          const float* x, const float* par,
                          const unsigned char* rl, const unsigned char* dec0,
-                         const unsigned char* rd, int P, int n, Small& sm,
-                         int tid, int lane, int warp) {
+                         const unsigned char* rd, int P, int n,
+                         float (*redf)[2], int tid, int lane, int warp) {
   const int l = K.l;
   const int E = P * n;
   auto row_of = [&](int p) { return par ? par + rl[p] * l * n : x; };
@@ -507,12 +601,12 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
     if (G <= 32) {
       if (e0 < E && g == 0) out[e] = 0.5f * (m0 - m1);
     } else {
-      if (lane == 0) { sm.redf[warp][0] = m0; sm.redf[warp][1] = m1; }
+      if (lane == 0) { redf[warp][0] = m0; redf[warp][1] = m1; }
       __syncthreads();
       if (g == 0 && e0 < E) {
         for (int w = warp + 1; w < warp + G / 32; ++w) {
-          m0 = fmaxf(m0, sm.redf[w][0]);
-          m1 = fmaxf(m1, sm.redf[w][1]);
+          m0 = fmaxf(m0, redf[w][0]);
+          m1 = fmaxf(m1, redf[w][1]);
         }
         out[e] = 0.5f * (m0 - m1);
       }
@@ -522,12 +616,14 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
   __syncthreads();
 }
 
-template <int SRC, int OUT, bool BIG>
+template <int SRC, int OUT, bool BIG, int CAP>
 __device__ __forceinline__ void scl_body(const SclArgs& a) {
   static_assert(OUT != kCounters || SRC == kMonteCarlo,
                 "counting errors needs the transmitted u");
+  static_assert((OUT == kSubtree) == (SRC == kPathBound),
+                "a depth-1 child takes a path-bound input");
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Small sm;
+  __shared__ Small<CAP> sm;
   const int N = a.N, m = a.m, P = a.P, Q = a.Q, K = a.K, W = a.W;
   float* lam = reinterpret_cast<float*>(smem);
   float* chan = lam + a.n_lam;                           // kMonteCarlo only
@@ -538,7 +634,10 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   unsigned char* sidx = tperm + Q * P;
   unsigned char* maps = sidx + Q * P;
   unsigned char* ut = maps + a.n_maps;                  // kMonteCarlo only
-  const int n_maps = a.n_maps;
+  // kPathBound: the net survival map (current path -> entry row of the
+  // input block) follows the stage maps and is composed at every fork
+  unsigned char* netmap = maps + a.n_maps;
+  const int n_maps = a.n_maps + (SRC == kPathBound ? P : 0);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -551,6 +650,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   if constexpr (SRC == kMonteCarlo) {
     mc_prologue<BIG>(a, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
     x = chan;
+  } else if constexpr (SRC == kPathBound) {
+    x = a.llr + (size_t)blockIdx.x * P * N;
   } else {
     x = a.llr + (size_t)blockIdx.x * N;
   }
@@ -565,7 +666,10 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   auto rdec_base = [&](int s, int c) { return sm.stage[s].w + (1 + c) * P; };
 
   for (int i = tid; i < n_maps; i += kThreads) maps[i] = (unsigned char)(i % P);
-  if (tid < P) sm.pm[tid] = (tid == 0) ? 0.f : kBig;
+  if (tid < P) {
+    if constexpr (SRC == kPathBound) sm.pm[tid] = a.pm_in[blockIdx.x * P + tid];
+    else sm.pm[tid] = (tid == 0) ? 0.f : kBig;
+  }
   __syncthreads();
 
   int q = 0;   // trajectory span of the next node op
@@ -578,15 +682,20 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if (kind == DOWN_FRESH || kind == DOWN_DYN) {
       const int s = lvl;
       float* out = lam_at(s);
-      const float* par = (s > 1) ? lam_at(s - 1) : nullptr;
-      const unsigned char* rl = (s > 1) ? rlam(s - 1) : nullptr;
+      // the parent block and its path map: the LLR buffer of stage s-1, or
+      // at s = 1 the input block through the net map (kPathBound) or the
+      // channel LLRs, the same on every path (par null)
+      const float* par = (s > 1) ? lam_at(s - 1)
+                                 : (SRC == kPathBound ? x : nullptr);
+      const unsigned char* rl = (s > 1) ? rlam(s - 1)
+                                        : (SRC == kPathBound ? netmap : nullptr);
       const unsigned char* d0 = dec_at(s, 0);
       const unsigned char* rd0 = maps + rdec_base(s, 0);
       if constexpr (BIG) {
         const BigKernel& bk = a.st[s].k;
         if (bk.l > 2) {
           big_down(bk, kind == DOWN_FRESH ? 0 : child, out, x, par, rl, d0,
-                   rd0, P, n, sm, tid, lane, warp);
+                   rd0, P, n, sm.redf, tid, lane, warp);
           if (tid < P) rlam(s)[tid] = (unsigned char)tid;
           __syncthreads();
           continue;
@@ -595,7 +704,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       for (int e = tid; e < P * n; e += kThreads) {
         const int p = e >> ln, j = e & (n - 1);
         float a, b;
-        if (s == 1) {
+        if (par == nullptr) {
           a = x[j];
           b = x[j + n];
         } else {
@@ -665,9 +774,9 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const int reset = rdec_base(d, child);
 
     if (kind == R0) {
-      if (warp < P) {
-        const float sum = warp_tree_sum(L + warp * n, n, 0, lane);
-        if (lane == 0) sm.pm[warp] = sm.pm[warp] + sum;
+      for (int p = warp; p < P; p += kWarps) {
+        const float sum = warp_tree_sum(L + p * n, n, 0, lane);
+        if (lane == 0) sm.pm[p] = sm.pm[p] + sum;
       }
       for (int e = tid; e < P * n; e += kThreads) {
         const int p = e >> ln, j = e & (n - 1);
@@ -685,10 +794,10 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 
     if (kind == REP || kind == LEAF || kind == LEAF_FROZEN) {
       if (kind == REP) {
-        if (warp < P) {
-          const float a = warp_tree_sum(L + warp * n, n, 0, lane);
-          const float b = warp_tree_sum(L + warp * n, n, 1, lane);
-          if (lane == 0) { sm.s0[warp] = a; sm.s1[warp] = b; }
+        for (int p = warp; p < P; p += kWarps) {
+          const float a = warp_tree_sum(L + p * n, n, 0, lane);
+          const float b = warp_tree_sum(L + p * n, n, 1, lane);
+          if (lane == 0) { sm.s0[p] = a; sm.s1[p] = b; }
         }
       } else if (tid < P) {
         sm.s0[tid] = fmaxf(-L[tid], 0.f);
@@ -711,7 +820,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
           const float a = lane < P ? sm.s0[lane] : 0.f;
           const float b = lane < P ? sm.s1[lane] : 0.f;
           float npm; int nperm, nbit;
-          fork2(lane, P, pmv, a, b, npm, nperm, nbit);
+          fork2<CAP>(lane, P, pmv, a, b, npm, nperm, nbit);
           if (lane < P) {
             sm.pm[lane] = npm;
             sm.nmap[lane] = (unsigned char)nperm;
@@ -720,7 +829,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         }
       }
       __syncthreads();
-      apply_perm(maps, n_maps, sm.nmap, P, reset, tid);
+      apply_perm<CAP>(maps, n_maps, sm.nmap, P, reset, tid);
       for (int e = tid; e < P * n; e += kThreads) {
         const int p = e >> ln, j = e & (n - 1);
         const unsigned char bit = sm.bit[p];
@@ -737,16 +846,16 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const bool spc = (kind == SPC);
     const int rounds = spc ? (P == 1 ? 0 : min(P, n - 1)) : min(P - 1, n);
     const int n_min = spc ? rounds + 1 : rounds;
-    if (warp < P) {
-      const float* v = L + warp * n;
-      warp_extract(v, n, n_min, lane, sm, warp);
+    for (int p = warp; p < P; p += kWarps) {
+      const float* v = L + p * n;
+      warp_extract(v, n, n_min, lane, sm, p);
       if (spc) {
         int par = 0;
         for (int j = lane; j < n; j += 32) par ^= (v[j] < 0.f);
 #pragma unroll
         for (int off = 16; off >= 1; off >>= 1)
           par ^= __shfl_xor_sync(kFull, par, off);
-        if (lane == 0) sm.bit[warp] = (unsigned char)par;
+        if (lane == 0) sm.bit[p] = (unsigned char)par;
       }
     }
     __syncthreads();
@@ -766,7 +875,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
           if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
         }
         float npm; int nperm, nbit;
-        fork2(lane, P, pmv, 0.f, pen, npm, nperm, nbit);
+        fork2<CAP>(lane, P, pmv, 0.f, pen, npm, nperm, nbit);
         nm = __shfl_sync(kFull, nm, nperm);
         eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
         pmv = npm;
@@ -796,7 +905,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       D[e] = xb;
       traj[(t0 + j) * P + p] = xb;
     }
-    apply_perm(maps, n_maps, sm.nmap, P, reset, tid);
+    apply_perm<CAP>(maps, n_maps, sm.nmap, P, reset, tid);
     if (!BIG || a.st[d].arikan_below) {
       // u = x F^{(x)k}: in-place butterflies over the span's trajectory rows
       for (int h = n >> 1; h >= 1; h >>= 1) {
@@ -819,7 +928,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   }
 
   const size_t b = blockIdx.x;
-  if constexpr (OUT == kTrajectory) {
+  if constexpr (OUT == kTrajectory || OUT == kSubtree) {
     // the genealogy, [B, ...]-major: one contiguous run per codeword
     uint8_t* tb = a.traj_bit + b * N * P;
     for (int i = tid; i < N * P; i += kThreads) tb[i] = traj[i];
@@ -829,6 +938,25 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if constexpr (SRC == kMonteCarlo) {
       int8_t* u = a.u_true + b * N;
       for (int t = tid; t < N; t += kThreads) u[t] = (int8_t)ut[t];
+    }
+    if constexpr (OUT == kSubtree) {
+      // the net survival map, and the root re-encode x_k = XOR_j u_j
+      // K_1[j, k] of the stage-1 children (through their maps: final path
+      // indexing), what the parent's UP would write
+      if (tid < P) a.netp[b * P + tid] = netmap[tid];
+      const BigKernel& bk = a.st[1].k;
+      const int l = bk.l, n = sm.stage[1].x;
+      const unsigned char* d0 = dec_at(1, 0);
+      const unsigned char* rd0 = maps + rdec_base(1, 0);
+      uint8_t* xo = a.xblk + b * P * N;
+      for (int e = tid; e < P * n; e += kThreads) {
+        const int p = e / n, j = e % n;
+        unsigned u = 0u;
+        for (int c = 0; c < l; ++c)
+          u |= (unsigned)d0[c * P * n + rd0[c * P + p] * n + j] << c;
+        for (int k = 0; k < l; ++k)
+          xo[p * N + k * n + j] = (uint8_t)(__popc(u & bk.kcol[k]) & 1u);
+      }
     }
     return;
   }
@@ -842,13 +970,13 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     }
   }
   __syncthreads();
-  if (warp < P) {
+  for (int p = warp; p < P; p += kWarps) {
     unsigned acc = 0u, rec = 0u;
     if (W > 0) {
       for (int t = lane; t < N; t += 32) {
         const int k = a.pidx[t];
         if (k < 0) continue;
-        const unsigned bit = traj[t * P + sidx[a.qrow[t] * P + warp]];
+        const unsigned bit = traj[t * P + sidx[a.qrow[t] * P + p]];
         if (k < K) acc ^= bit ? a.gmask[k] : 0u;
         else rec |= bit << (k - K);
       }
@@ -858,7 +986,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         rec |= __shfl_xor_sync(kFull, rec, off);
       }
     }
-    if (lane == 0) sm.ok[warp] = (W == 0 || (acc ^ a.offmask) == rec) ? 1.f : 0.f;
+    if (lane == 0) sm.ok[p] = (W == 0 || (acc ^ a.offmask) == rec) ? 1.f : 0.f;
   }
   __syncthreads();
   if (tid == 0) {
@@ -896,56 +1024,68 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   }
 }
 
-// min 3 blocks an SM: ca_scl's ~64 KB of shared memory a block allows 3
-__global__ void __launch_bounds__(kThreads, 3) scl_decode(SclArgs a) {
-  scl_body<kLlrIn, kSelect, false>(a);
-}
-__global__ void __launch_bounds__(kThreads, 3) scl_decode_traj(SclArgs a) {
-  scl_body<kLlrIn, kTrajectory, false>(a);
-}
-__global__ void __launch_bounds__(kThreads, 3) scl_mc_traj(SclArgs a) {
-  scl_body<kMonteCarlo, kTrajectory, false>(a);
-}
-__global__ void __launch_bounds__(kThreads, 3) scl_mc_counters(SclArgs a) {
-  scl_body<kMonteCarlo, kCounters, false>(a);
-}
+#define SCL_KERNEL(NAME, MIN_BLOCKS, ...)                                  \
+  __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) NAME(SclArgs a) { \
+    scl_body<__VA_ARGS__>(a);                                             \
+  }
+
+// capacity 8, min 3 blocks an SM: ca_scl's ~64 KB of shared memory a block
+// allows 3
+SCL_KERNEL(scl_decode, 3, kLlrIn, kSelect, false, 8)
+SCL_KERNEL(scl_decode_traj, 3, kLlrIn, kTrajectory, false, 8)
+SCL_KERNEL(scl_mc_traj, 3, kMonteCarlo, kTrajectory, false, 8)
+SCL_KERNEL(scl_mc_counters, 3, kMonteCarlo, kCounters, false, 8)
 // with l > 2 kernels: bch_sc's decode state is a few KB, so registers set
 // the blocks an SM; ask for 4 (<= 64 registers a thread)
-__global__ void __launch_bounds__(kThreads, 4) scl_decode_big(SclArgs a) {
-  scl_body<kLlrIn, kSelect, true>(a);
-}
-__global__ void __launch_bounds__(kThreads, 4) scl_decode_traj_big(SclArgs a) {
-  scl_body<kLlrIn, kTrajectory, true>(a);
-}
-__global__ void __launch_bounds__(kThreads, 4) scl_mc_traj_big(SclArgs a) {
-  scl_body<kMonteCarlo, kTrajectory, true>(a);
-}
-__global__ void __launch_bounds__(kThreads, 4) scl_mc_counters_big(SclArgs a) {
-  scl_body<kMonteCarlo, kCounters, true>(a);
-}
+SCL_KERNEL(scl_decode_big, 4, kLlrIn, kSelect, true, 8)
+SCL_KERNEL(scl_decode_traj_big, 4, kLlrIn, kTrajectory, true, 8)
+SCL_KERNEL(scl_mc_traj_big, 4, kMonteCarlo, kTrajectory, true, 8)
+SCL_KERNEL(scl_mc_counters_big, 4, kMonteCarlo, kCounters, true, 8)
+// capacity 32 (L <= 32): the wider fork and map loops, 2 blocks an SM
+SCL_KERNEL(scl_decode_c32, 2, kLlrIn, kSelect, false, 32)
+SCL_KERNEL(scl_decode_traj_c32, 2, kLlrIn, kTrajectory, false, 32)
+SCL_KERNEL(scl_mc_traj_c32, 2, kMonteCarlo, kTrajectory, false, 32)
+SCL_KERNEL(scl_mc_counters_c32, 2, kMonteCarlo, kCounters, false, 32)
+SCL_KERNEL(scl_decode_big_c32, 2, kLlrIn, kSelect, true, 32)
+SCL_KERNEL(scl_decode_traj_big_c32, 2, kLlrIn, kTrajectory, true, 32)
+SCL_KERNEL(scl_mc_traj_big_c32, 2, kMonteCarlo, kTrajectory, true, 32)
+SCL_KERNEL(scl_mc_counters_big_c32, 2, kMonteCarlo, kCounters, true, 32)
+// the subtree kernel: one depth-1 child a block; the l > 2 instance (it
+// also runs 2x2 stages) serves Arikan and mixed children
+SCL_KERNEL(scl_subtree, 4, kPathBound, kSubtree, true, 8)
+SCL_KERNEL(scl_subtree_c32, 2, kPathBound, kSubtree, true, 32)
 
 }  // namespace
 
 extern "C" {
 
-// kernel: 0 scl_decode, 1 scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters
+// kernel: 0 scl_decode, 1 scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters,
+// 4 scl_subtree
 size_t scl_smem_bytes(int kernel, const SclArgs* a) {
   const size_t N = a->N, P = a->P, Q = a->Q;
   return (size_t)4 * a->n_lam + (size_t)a->n_dec + N * P + 2 * Q * P
-         + (size_t)a->n_maps + (kernel >= 2 ? 5 * N : 0);
+         + (size_t)a->n_maps + (kernel == 2 || kernel == 3 ? 5 * N : 0)
+         + (kernel == 4 ? P : 0);
 }
 
 int scl_launch(int kernel, const SclArgs* a, void* stream) {
-  static void (*const fns[8])(SclArgs) = {
-      scl_decode, scl_decode_traj, scl_mc_traj, scl_mc_counters,
-      scl_decode_big, scl_decode_traj_big, scl_mc_traj_big,
-      scl_mc_counters_big};
-  if (kernel < 0 || kernel > 3 || a->P < 1 || a->P > kMaxP || a->W > 32
+  // [capacity 8, 32][kernel + 5 * big]
+  static void (*const fns[2][10])(SclArgs) = {
+      {scl_decode, scl_decode_traj, scl_mc_traj, scl_mc_counters, scl_subtree,
+       scl_decode_big, scl_decode_traj_big, scl_mc_traj_big,
+       scl_mc_counters_big, scl_subtree},
+      {scl_decode_c32, scl_decode_traj_c32, scl_mc_traj_c32,
+       scl_mc_counters_c32, scl_subtree_c32, scl_decode_big_c32,
+       scl_decode_traj_big_c32, scl_mc_traj_big_c32, scl_mc_counters_big_c32,
+       scl_subtree_c32}};
+  const int cap = a->P <= 8 ? 0 : 1;
+  const int maps = a->n_maps + (kernel == 4 ? a->P : 0);
+  if (kernel < 0 || kernel > 4 || a->P < 1 || a->P > 32 || a->W > 32
       || a->B < 1 || a->N < 2 || a->m < 1 || a->m + 1 > kMaxStages
-      || a->n_maps > kMapsPerThread * kThreads)
+      || maps > maps_per_thread(cap ? 32 : 8) * kThreads)
     return (int)cudaErrorInvalidValue;
   const size_t smem = scl_smem_bytes(kernel, a);
-  void (*const fn)(SclArgs) = fns[kernel + (a->big ? 4 : 0)];
+  void (*const fn)(SclArgs) = fns[cap][kernel + (a->big ? 5 : 0)];
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -954,6 +1094,11 @@ int scl_launch(int kernel, const SclArgs* a, void* stream) {
 }
 
 int scl_args_bytes(void) { return (int)sizeof(SclArgs); }
+
+// static shared memory of the instances that take list size P
+int scl_static_smem_bytes(int P) {
+  return P <= 8 ? (int)sizeof(Small<8>) : (int)sizeof(Small<32>);
+}
 
 int scl_decode_max_smem_bytes(void) {
   int dev = 0, v = 0;

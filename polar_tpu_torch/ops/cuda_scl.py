@@ -2,21 +2,23 @@
 and the wrappers.
 
 Counterpart of polar_tpu/ops/pallas_scl.py build_pallas_scl_kernel. One
-source holds four kernels built from one decode body (one thread block
+source holds five kernels built from one decode body (one thread block
 per codeword):
 
     scl_decode       K1, select mode: LLRs -> DecodeResult in-kernel;
     scl_decode_traj  K2, LLRs -> the genealogy (traj_bit, traj_perm, pm),
                      finished by ops/scl.py `scl_epilogue`;
     scl_mc_traj      K4, the fused Monte-Carlo step's full mode (ops/mc.py);
-    scl_mc_counters  K5, its counters mode (ops/mc.py).
+    scl_mc_counters  K5, its counters mode (ops/mc.py);
+    scl_subtree      K3, one depth-1 child of a code on its own
+                     (`SubtreeKernel`, the subtree route of ops/scl.py).
 
-Each has a second instance for specs with l > 2 kernels (eBCH, mixed),
-chosen at launch. This module builds the op table from the fast-SSCL
-program (ops/program.py) and the per-stage tables, compiles the source
-with nvcc at first use into a shared library with a plain C interface
-under build/ at the repository root (git-ignored; ops/cuda_build.py), and
-loads it with ctypes.
+Each has instances for specs with l > 2 kernels (eBCH, mixed) and for list
+capacities 8 and 32, chosen at launch. This module builds the op table
+from the fast-SSCL program (ops/program.py) and the per-stage tables,
+compiles the source with nvcc at first use into a shared library with a
+plain C interface under build/ at the repository root (git-ignored;
+ops/cuda_build.py), and loads it with ctypes.
 
 `SclDecoder.kernel(llrs)` is the decode wrapper: a CUDA tensor goes to the
 kernel (or the call raises), a CPU tensor to the plain PyTorch version
@@ -36,22 +38,29 @@ from polar_tpu_torch.ops.cuda_stage import MAX_L, BigKernel, big_kernel
 from polar_tpu_torch.ops.program import build_program, staged_inverse_kernels
 from polar_tpu_torch.ops.schedule import build_schedule
 from polar_tpu_torch.ops.scl import (DecodeResult, build_plain_scl_decoder,
-                                     check_supported, scl_epilogue,
-                                     trajectory_spans)
+                                     build_plain_subtree, check_supported,
+                                     scl_epilogue, trajectory_spans)
 
 SOURCE = cuda_build.CSRC / "scl_decode.cu"
 
 # kernel name -> its index in scl_launch
 KERNELS = {"scl_decode": 0, "scl_decode_traj": 1, "scl_mc_traj": 2,
-           "scl_mc_counters": 3}
+           "scl_mc_counters": 3, "scl_subtree": 4}
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _KIND = {"DOWN_FRESH": 0, "DOWN_DYN": 1, "UP": 2, "R0": 3, "REP": 4,
          "R1": 5, "SPC": 6, "LEAF": 7}
 _LEAF_FROZEN = 8
 _THREADS = 256
-_MAX_MAPS = 2 * _THREADS
 _MAX_STAGES = 17
+
+
+def max_maps(list_size: int) -> int:
+    """Bytes of path maps the kernels hold (the source's `maps_per_thread`):
+    the instances of list capacity 8 take 2 a thread, those of capacity 32
+    (list sizes 9..32) 8 a thread."""
+    return (2 if int(list_size) <= 8 else 8) * _THREADS
+
 
 _lib = None
 
@@ -68,7 +77,8 @@ class SclArgs(ctypes.Structure):
     """The kernels' argument block; mirrors `SclArgs` in the source."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "llr", "noise", "ops", "qrow", "pidx", "gmask", "st", "u", "pm", "ok",
-        "traj_bit", "traj_perm", "u_true", "counters")]
+        "traj_bit", "traj_perm", "u_true", "counters", "pm_in", "netp",
+        "xblk")]
         + [(name, ctypes.c_uint) for name in ("offmask", "seed0", "seed1")]
         + [("sigma", ctypes.c_float)]
         + [(name, ctypes.c_int) for name in (
@@ -96,6 +106,8 @@ def load_library() -> ctypes.CDLL:
     lib.scl_args_bytes.restype = ci
     lib.scl_decode_max_smem_bytes.argtypes = []
     lib.scl_decode_max_smem_bytes.restype = ci
+    lib.scl_static_smem_bytes.argtypes = [ci]
+    lib.scl_static_smem_bytes.restype = ci
     if lib.scl_args_bytes() != ctypes.sizeof(SclArgs):
         raise RuntimeError(f"SclArgs is {lib.scl_args_bytes()} B in the "
                            f"library, {ctypes.sizeof(SclArgs)} B here")
@@ -108,7 +120,9 @@ def stage_tables(spec: CodeSpec, P: int):
     block n_s, the offsets of its LLR buffer (P*n_s floats), its l_s
     decision children (P*n_s bytes each) and its 1 + l_s path maps (P
     bytes each), whether the kernels below it are all 2x2, the columns of
-    its kernel's inverse and its kernel's tables (ops/cuda_stage.py)."""
+    its kernel's inverse and its kernel's tables (ops/cuda_stage.py). The
+    maps, with the subtree kernel's net map (P bytes more), must fit
+    `max_maps(P)`."""
     m = len(spec.factors)
     if m + 1 > _MAX_STAGES:
         raise ValueError(f"{m} stages exceed the kernel's {_MAX_STAGES - 1}")
@@ -131,9 +145,9 @@ def stage_tables(spec: CodeSpec, P: int):
         for k in range(l):
             t.icol[k] = int((ki[:, k] << np.arange(l)).sum())
         t.k = big_kernel(spec.kernels[s - 1])
-    if maps > _MAX_MAPS:
-        raise ValueError(f"{maps} bytes of path maps exceed the kernel's "
-                         f"{_MAX_MAPS}")
+    if maps + P > max_maps(P):
+        raise ValueError(f"{maps} + {P} bytes of path maps exceed the "
+                         f"kernel's {max_maps(P)}")
     return tabs, lam, dec, maps
 
 
@@ -243,9 +257,13 @@ class SclKernels:
         # device: make it the tensors' device
         with torch.cuda.device(device):
             limit = lib.scl_decode_max_smem_bytes()
-            if smem + 1024 > limit:
-                raise ValueError(f"decode state {smem} B exceeds the {limit} "
-                                 "B of shared memory a block may use")
+            if smem + lib.scl_static_smem_bytes(P) > limit:
+                raise ValueError(
+                    f"decode state of N={spec.N}, L={P}: {smem} B exceeds the "
+                    f"{limit} B of shared memory a block may use; decode it "
+                    "with build_scl_decoder(..., subtree_backend='pallas', "
+                    "big_stage_backend='pallas'), one subtree-kernel launch "
+                    "a depth-1 child")
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.scl_launch(KERNELS[name], ctypes.byref(args), stream)
         if err != 0:
@@ -263,13 +281,15 @@ def check_llrs(llrs: torch.Tensor, N: int) -> None:
         raise ValueError("llrs must be contiguous")
 
 
-def trajectory_outputs(spec: CodeSpec, P: int, batch: int, device,
-                       mc: bool = False) -> dict:
+def trajectory_outputs(spec: CodeSpec, P: int, n_spans: int, batch: int,
+                       device, mc: bool = False) -> dict:
     """Output tensors of the trajectory kernels, [B, ...]-major as they
-    write them."""
+    write them; n_spans = len(trajectory_spans(spec, P)), which the
+    callers keep (rebuilding the program on every launch costs ms of host
+    time, more than a short kernel)."""
     out = {"traj_bit": torch.empty((batch, spec.N, P), dtype=torch.int8,
                                    device=device),
-           "traj_perm": torch.empty((batch, len(trajectory_spans(spec, P)), P),
+           "traj_perm": torch.empty((batch, n_spans, P),
                                     dtype=torch.uint8, device=device),
            "pm": torch.empty((batch, P), dtype=torch.float32, device=device)}
     if mc:
@@ -351,9 +371,57 @@ class SclDecoder:
     def _trajectory(self, llrs: torch.Tensor):
         check_llrs(llrs, self.spec.N)
         B = llrs.shape[0]
-        out = trajectory_outputs(self.spec, self.P, B, llrs.device)
+        out = trajectory_outputs(self.spec, self.P, len(self.spans), B,
+                                 llrs.device)
         self.kernels.launch("scl_decode_traj", B, llrs.device, llr=llrs, **out)
         return trajectory_layout(out)
+
+
+class SubtreeKernel:
+    """core_sub(lam1 [P, N1, B] float32, pm [P, B] float32) -> (bits
+    [N1, P, B] int8, perms [Q, P, B] int64, netp [P, B] int64, x [P, N1, B]
+    int8, pm' [P, B] float32) for one depth-1 child `sub_spec`
+    (ops/program.subtree_spec): `build_plain_subtree`'s contract, run by the
+    subtree kernel scl_subtree (K3) for a CUDA tensor (or the call raises)
+    and by the plain version for a CPU one. `spans` are the children's
+    trajectory spans (t0 relative to the child)."""
+
+    def __init__(self, sub_spec: CodeSpec, list_size: int):
+        self.spec = sub_spec
+        self.P = int(list_size)
+        self.kernels = SclKernels(sub_spec, self.P)
+        self.spans = trajectory_spans(sub_spec, self.P)
+
+    @functools.cached_property
+    def plain(self):
+        return build_plain_subtree(self.spec, self.P)
+
+    def __call__(self, lam1: torch.Tensor, pm: torch.Tensor):
+        if _on_cpu(lam1):
+            return self.plain(lam1, pm)
+        return self.kernel(lam1, pm)
+
+    def kernel(self, lam1: torch.Tensor, pm: torch.Tensor):
+        P, N = self.P, self.spec.N
+        if lam1.dtype != torch.float32 or pm.dtype != torch.float32:
+            raise TypeError(f"lam1 and pm must be float32, got {lam1.dtype}, "
+                            f"{pm.dtype}")
+        if lam1.ndim != 3 or tuple(lam1.shape[:2]) != (P, N) or lam1.shape[2] < 1:
+            raise ValueError(f"lam1 must be [{P}, {N}, B], got {tuple(lam1.shape)}")
+        B = lam1.shape[2]
+        if tuple(pm.shape) != (P, B) or pm.device != lam1.device:
+            raise ValueError(f"pm must be [{P}, {B}] on {lam1.device}, got "
+                             f"{tuple(pm.shape)} on {pm.device}")
+        dev = lam1.device
+        out = trajectory_outputs(self.spec, P, len(self.spans), B, dev)
+        netp = torch.empty((B, P), dtype=torch.uint8, device=dev)
+        xblk = torch.empty((B, P, N), dtype=torch.int8, device=dev)
+        self.kernels.launch("scl_subtree", B, dev,
+                            llr=lam1.permute(2, 0, 1).contiguous(),
+                            pm_in=pm.T.contiguous(), netp=netp, xblk=xblk, **out)
+        bits, perms, pm_out = trajectory_layout(out)
+        return (bits, perms, netp.T.to(torch.int64),
+                xblk.permute(1, 2, 0).contiguous(), pm_out)
 
 
 def _on_cpu(x: torch.Tensor) -> bool:

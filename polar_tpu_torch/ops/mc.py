@@ -153,7 +153,8 @@ class McStep:
         version on the CPU."""
         if self.device.type == "cpu":
             return self.plain_trajectory(seed, sigma, batch, noise)
-        out = trajectory_outputs(self.spec, self.P, batch, self.device, mc=True)
+        out = trajectory_outputs(self.spec, self.P, len(self.decoder.spans),
+                                 batch, self.device, mc=True)
         self._launch("scl_mc_traj", seed, sigma, batch, noise, **out)
         return (*trajectory_layout(out), out["u_true"])
 

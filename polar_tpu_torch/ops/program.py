@@ -127,6 +127,46 @@ def build_program(spec: CodeSpec, scl: bool, classify: bool = True,
                    op_code=codes, op_t0=t0s)
 
 
+def subtree_items(program: Program, spec: CodeSpec) -> list[tuple]:
+    """The program as the subtree decoder walks it (polar_tpu/ops/scl.py
+    subtree_backend="pallas"): ("op", j) for op j, and ("sub", t0,
+    frozen_slice) for the ops of the depth-1 child at leaf t0 after its
+    stage-1 DOWN (its final UP included) when there is more than one of
+    them; a child that collapses to a single node stays as ops."""
+    ops = program.ops
+    n1 = spec.block_sizes[1]
+
+    def stage1_down(op: Op) -> bool:
+        return op.level == 1 and op.kind in (DOWN_FRESH, DOWN_DYN)
+
+    items: list[tuple] = []
+    j = 0
+    while j < len(ops):
+        items.append(("op", j))
+        if not stage1_down(ops[j]):
+            j += 1
+            continue
+        k = j + 1
+        while k < len(ops) and not stage1_down(ops[k]):
+            k += 1
+        if k - j - 1 <= 1:
+            items.extend(("op", jj) for jj in range(j + 1, k))
+        else:
+            t0 = ops[j].t0
+            items.append(("sub", t0,
+                          tuple(int(v) for v in spec.frozen[t0:t0 + n1])))
+        j = k
+    return items
+
+
+def subtree_spec(spec: CodeSpec, frozen_slice: tuple[int, ...]) -> CodeSpec:
+    """The code of one depth-1 child: the kernels below stage 1, its slice
+    of the frozen set, no CRC."""
+    n1 = spec.block_sizes[1]
+    return CodeSpec(N=n1, K=n1 - sum(frozen_slice), factors=spec.factors[1:],
+                    frozen_mask=tuple(frozen_slice), crc=None)
+
+
 def staged_inverse_kernels(spec: CodeSpec) -> tuple[np.ndarray, ...]:
     """GF(2) inverses of each kernel factor (for R1/SPC u recovery)."""
     return tuple(gf2_inverse(k).astype(np.float32) for k in spec.kernels)

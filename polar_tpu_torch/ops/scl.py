@@ -35,14 +35,16 @@ import torch
 
 from polar_tpu_torch.models.polar import CodeSpec
 from polar_tpu_torch.ops.kernel_proc import StageProcessor
-from polar_tpu_torch.ops.program import build_program, staged_inverse_kernels
+from polar_tpu_torch.ops.program import (build_program, staged_inverse_kernels,
+                                         subtree_items, subtree_spec)
 from polar_tpu_torch.ops.schedule import build_schedule
 from polar_tpu_torch.utils.device import resolve_device
 
 BIG = 1e30   # metric penalty of a CRC failure; initial metric of paths 1..P-1
-MAX_LIST = 8
+MAX_LIST = 32
 KERNEL_SIZES = (2, 4, 8, 16)
 BIG_STAGE_BACKENDS = ("xla", "pallas")
+SUBTREE_BACKENDS = ("none", "pallas")
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 7: decoder knobs)"
 
@@ -61,8 +63,7 @@ def check_supported(spec: CodeSpec, list_size: int) -> None:
             f"factors {spec.factors}: kernel sizes other than "
             f"{KERNEL_SIZES} (build_bch_kernel's) are not ported")
     if not 1 <= int(list_size) <= MAX_LIST:
-        raise ValueError(f"list_size {list_size} outside 1..{MAX_LIST}; "
-                         "L=32 comes with the mixed_scl32 slice")
+        raise ValueError(f"list_size {list_size} outside 1..{MAX_LIST}")
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -199,15 +200,30 @@ def finalize(spec: CodeSpec, P: int, u_all, payload_all, pm) -> DecodeResult:
 
 
 class _State:
-    """Decoder state of one batch: buffers, lazy maps, metrics, genealogy."""
+    """Decoder state of one batch: buffers, lazy maps, metrics, genealogy.
 
-    def __init__(self, spec: CodeSpec, P: int, llrs: torch.Tensor):
-        bsz = llrs.shape[0]
+    From channel LLRs llrs [B, N] (the input is the same on every path),
+    or, for a depth-1 child decoded on its own (`build_plain_subtree`),
+    from a path-bound input block lam1 [P, N, B] and the parent's metrics
+    pm [P, B]: path p reads row netmap[p] of it, netmap composing every
+    fork since the start."""
+
+    def __init__(self, spec: CodeSpec, P: int, llrs: torch.Tensor,
+                 pm: torch.Tensor | None = None):
+        bsz = llrs.shape[-1] if pm is not None else llrs.shape[0]
         dev = llrs.device
         m = len(spec.factors)
         ns = spec.block_sizes
-        self.lam0 = llrs.T.to(torch.float32)                       # [N, B]
         self.iota = torch.arange(P, device=dev)[:, None].expand(P, bsz)
+        if pm is None:
+            self.lam0 = llrs.T.to(torch.float32)                   # [N, B]
+            self.netmap = None
+            self.pm = torch.full((P, bsz), BIG, device=dev)
+            self.pm[0] = 0.0
+        else:
+            self.lam0 = llrs.to(torch.float32)                     # [P, N, B]
+            self.netmap = self.iota
+            self.pm = pm
         # index s-1 holds stage s (s = 1..m)
         self.lam = [torch.zeros((P, ns[s], bsz), device=dev)
                     for s in range(1, m + 1)]
@@ -216,8 +232,6 @@ class _State:
                     for s in range(1, m + 1)]
         self.rlam = [self.iota for _ in range(m)]
         self.rdec = [[self.iota] * f for f in spec.factors]
-        self.pm = torch.full((P, bsz), BIG, device=dev)
-        self.pm[0] = 0.0
         self.traj_bit = torch.zeros((spec.N, P, bsz), dtype=torch.int8,
                                     device=dev)
         self.traj = []
@@ -226,6 +240,15 @@ class _State:
         """Permute every path->slot map by a survival permutation [P, B]."""
         self.rlam = [r.gather(0, perm) for r in self.rlam]
         self.rdec = [[r.gather(0, perm) for r in rs] for rs in self.rdec]
+        if self.netmap is not None:
+            self.netmap = self.netmap.gather(0, perm)
+
+    def input_view(self, l: int, n: int) -> torch.Tensor:
+        """The stage-1 DOWN's parent block as [P or 1, l, n, B]."""
+        if self.netmap is None:
+            return self.lam0.reshape(1, l, n, -1)
+        return pgather(self.lam0, self.netmap).reshape(-1, l, n,
+                                                       self.lam0.shape[-1])
 
     def write_dec(self, d: int, child: int, block: torch.Tensor) -> None:
         """Record a depth-d node's hard output block [P, n_d, B] as child
@@ -260,24 +283,18 @@ def trajectory_spans(spec: CodeSpec, list_size: int) -> list[tuple[int, int]]:
             if op.kind not in ("DOWN_FRESH", "DOWN_DYN", "UP")]
 
 
-def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
-                            trajectory: bool = False,
-                            stage_kernel: bool = False):
-    """decode(llrs [B, N] float32 tensor) -> DecodeResult, in plain PyTorch
-    on the tensor's own device (the CUDA kernel's plain version).
+class _Program(NamedTuple):
+    """The op program of one (spec, list size) as PyTorch steps."""
+    program: object           # ops/program.Program
+    steps: list               # per op: (handler, level, t0)
+    procs: list               # per stage: StageProcessor
+    digits: np.ndarray        # leaf -> kernel input index per stage
 
-    trajectory=True: decode returns the genealogy instead, (traj_bit
-    [N, P, B] int8, traj_perm [Q, P, B] int64, pm [P, B] float32), which
-    `scl_epilogue` over `trajectory_spans` turns into the DecodeResult (the
-    plain version of the trajectory kernels).
 
-    stage_kernel=True: the l > 2 trellis/table DOWN ops (0 <= i < l-1) run
-    in the CUDA stage kernel (ops/cuda_stage.py) on a CUDA tensor; the
-    rest stays PyTorch. This is the hybrid decoder of
-    `build_scl_decoder(big_stage_backend="pallas")`; on a CPU tensor it is
-    the plain decoder."""
-    check_supported(spec, list_size)
-    P = int(list_size)
+def _build_program_steps(spec: CodeSpec, P: int,
+                         stage_kernel: bool = False) -> _Program:
+    """Each op of the fast-SSCL program as a handler fn(state, level, t0)
+    on a `_State`."""
     m = len(spec.factors)
     ns = spec.block_sizes
     factors = spec.factors
@@ -295,8 +312,9 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
         """Input i's LLRs of stage s (f / g for the 2x2 kernel)."""
         l, n = factors[s - 1], ns[s]
         if s == 1:
-            # the channel view at P = 1; the result broadcasts over paths
-            view = st.lam0.reshape(1, l, n, -1)
+            # the channel view at P = 1 (the result broadcasts over paths),
+            # or a child's path-bound input
+            view = st.input_view(l, n)
         else:
             view = pgather(st.lam[s - 2], st.rlam[s - 2]).reshape(P, l, n, -1)
         if fresh:
@@ -439,19 +457,114 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
         "UP": up, "R0": r0, "REP": rep, "R1": r1, "SPC": spc, "LEAF": leaf,
     }
     steps = [(handlers[op.kind], op.level, op.t0) for op in program.ops]
+    return _Program(program, steps, procs, digits)
+
+
+def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
+                            trajectory: bool = False,
+                            stage_kernel: bool = False,
+                            subtree: bool = False):
+    """decode(llrs [B, N] float32 tensor) -> DecodeResult, in plain PyTorch
+    on the tensor's own device (the CUDA kernel's plain version).
+
+    trajectory=True: decode returns the genealogy instead, (traj_bit
+    [N, P, B] int8, traj_perm [Q, P, B] int64, pm [P, B] float32), which
+    `scl_epilogue` over `trajectory_spans` turns into the DecodeResult (the
+    plain version of the trajectory kernels).
+
+    stage_kernel=True: the l > 2 trellis/table DOWN ops (0 <= i < l-1) run
+    in the CUDA stage kernel (ops/cuda_stage.py) on a CUDA tensor; the
+    rest stays PyTorch. This is the hybrid decoder of
+    `build_scl_decoder(big_stage_backend="pallas")`; on a CPU tensor it is
+    the plain decoder.
+
+    subtree=True: the walk of `subtree_items` (the JAX package's
+    subtree_backend="pallas"): each depth-1 child of more than one op is
+    one call of its `core_sub` (ops/cuda_scl.py SubtreeKernel: the CUDA
+    subtree kernel on a CUDA tensor, `build_plain_subtree` on a CPU one),
+    one per distinct frozen slice; the rest runs as above. It computes what
+    the default walk computes, bit for bit."""
+    check_supported(spec, list_size)
+    P = int(list_size)
+    prog = _build_program_steps(spec, P, stage_kernel)
+    steps = prog.steps
+    items = [("op", j) for j in range(len(steps))]
+    if subtree:
+        from polar_tpu_torch.ops.cuda_scl import SubtreeKernel
+
+        items = subtree_items(prog.program, spec)
+        cores = {}
+        for item in items:
+            if item[0] == "sub" and item[2] not in cores:
+                cores[item[2]] = SubtreeKernel(subtree_spec(spec, item[2]), P)
+        items = [item if item[0] == "op" else
+                 ("sub", item[1], cores[item[2]]) for item in items]
+
+    def sub(st: _State, t0: int, core) -> None:
+        """One child through its core_sub (polar_tpu/ops/scl.py
+        `_subtree_item`): its input, the stage-1 LLR block, is at
+        identity slots, having just been written."""
+        bits, perms, netp, x, pm = core(st.lam[0], st.pm)
+        st.apply_perm(netp)
+        st.pm = pm
+        st.traj.extend((t0 + ts, nn, perms[q])
+                       for q, (ts, nn) in enumerate(core.spans))
+        st.traj_bit[t0:t0 + bits.shape[0]] = bits
+        st.write_dec(1, int(prog.digits[t0, 0]), x)
 
     def decode(llrs: torch.Tensor) -> DecodeResult:
         if llrs.ndim != 2 or llrs.shape[1] != spec.N:
             raise ValueError(f"llrs must be [B, {spec.N}], got "
                              f"{tuple(llrs.shape)}")
         st = _State(spec, P, llrs)
-        for fn, level, t0 in steps:
-            fn(st, level, t0)
+        for item in items:
+            if item[0] == "op":
+                fn, level, t0 = steps[item[1]]
+                fn(st, level, t0)
+            else:
+                sub(st, item[1], item[2])
         if trajectory:
             return (st.traj_bit, torch.stack([e[2] for e in st.traj]), st.pm)
         return scl_epilogue(spec, P, st.traj, st.traj_bit, st.pm)
 
     return decode
+
+
+def build_plain_subtree(sub_spec: CodeSpec, list_size: int):
+    """core_sub(lam1 [P, N1, B] float32, pm [P, B] float32) -> (bits
+    [N1, P, B] int8, perms [Q, P, B] int64, netp [P, B] int64, x [P, N1, B]
+    int8, pm' [P, B] float32): one depth-1 child `sub_spec`
+    (ops/program.subtree_spec) decoded on its own, the plain version of the
+    CUDA subtree kernel (the JAX package's `core_sub`,
+    polar_tpu/ops/pallas_scl.py build_pallas_scl_kernel(subtree=True)).
+
+    lam1 is path-bound (path p's row at the start is lam1[p]; every stage-1
+    DOWN reads it through the fork permutations composed so far) and pm
+    comes in as it is. bits are in each op's post-op path indexing at
+    child-relative rows, perms are the ops' survival permutations (spans
+    `trajectory_spans(sub_spec, P)`), netp is their composition and x the
+    root re-encode of the stage-1 decisions through the child's first
+    kernel (what the parent's UP would write), in final path indexing."""
+    check_supported(sub_spec, list_size)
+    P = int(list_size)
+    prog = _build_program_steps(sub_spec, P)
+    l0 = sub_spec.factors[0]
+
+    def core_sub(lam1: torch.Tensor, pm: torch.Tensor):
+        if lam1.ndim != 3 or tuple(lam1.shape[:2]) != (P, sub_spec.N):
+            raise ValueError(f"lam1 must be [{P}, {sub_spec.N}, B], got "
+                             f"{tuple(lam1.shape)}")
+        if tuple(pm.shape) != (P, lam1.shape[2]):
+            raise ValueError(f"pm must be [{P}, {lam1.shape[2]}], got "
+                             f"{tuple(pm.shape)}")
+        st = _State(sub_spec, P, lam1, pm=pm.to(torch.float32))
+        for fn, level, t0 in prog.steps:
+            fn(st, level, t0)
+        x = prog.procs[0].reencode(st.dec_children(1, l0))
+        return (st.traj_bit, torch.stack([e[2] for e in st.traj]), st.netmap,
+                x.reshape(P, sub_spec.N, x.shape[-1]), st.pm)
+
+    return core_sub
 
 
 def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",
@@ -474,26 +587,37 @@ def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",
     op (0 <= i < l-1) one launch of the CUDA stage kernel
     (ops/cuda_stage.py); on the CPU it equals the plain decoder.
 
+    subtree_backend: "none" (default) or "pallas" (the JAX name): the op
+    program in PyTorch tensor ops on `device` with each depth-1 child of
+    more than one op one launch of the CUDA subtree kernel (ops/cuda_scl.py
+    SubtreeKernel), and the outer l > 2 DOWN ops as `big_stage_backend`
+    says (one stage-kernel launch each with "pallas", PyTorch ops with
+    "xla"). This is the route of codes whose decode state does not fit a
+    block's shared memory (mixed_scl32); on the CPU it equals the plain
+    decoder.
+
     The other knobs keep the JAX package's names; only their defaults are
     ported, and any other value raises NotImplementedError.
     """
     knobs = {"genie": (genie, False), "fast": (fast, True),
              "fast_r1_scl": (fast_r1_scl, True),
              "llr_dtype": (llr_dtype, torch.float32), "unroll": (unroll, True),
-             "f_mode": (f_mode, "minsum"), "pm_mode": (pm_mode, "abs"),
-             "subtree_backend": (subtree_backend, "none")}
+             "f_mode": (f_mode, "minsum"), "pm_mode": (pm_mode, "abs")}
     for name, (val, default) in knobs.items():
         if val != default:
             raise NotImplementedError(f"{name}={val!r} {_NOT_PORTED}")
     if big_stage_backend not in BIG_STAGE_BACKENDS:
         raise ValueError(f"unknown big_stage_backend {big_stage_backend!r}")
+    if subtree_backend not in SUBTREE_BACKENDS:
+        raise ValueError(f"unknown subtree_backend {subtree_backend!r}")
     dev = resolve_device(device)
-    if big_stage_backend == "pallas":
-        hybrid = build_plain_scl_decoder(spec, list_size, stage_kernel=True)
+    if big_stage_backend == "pallas" or subtree_backend == "pallas":
+        walk = build_plain_scl_decoder(
+            spec, list_size, stage_kernel=big_stage_backend == "pallas",
+            subtree=subtree_backend == "pallas")
 
         def decode(llrs) -> DecodeResult:
-            return hybrid(torch.as_tensor(llrs, dtype=torch.float32,
-                                          device=dev))
+            return walk(torch.as_tensor(llrs, dtype=torch.float32, device=dev))
         return decode
     from polar_tpu_torch.ops.cuda_scl import SclDecoder
     return SclDecoder(spec, list_size, dev)

@@ -31,7 +31,8 @@ from polar_tpu_torch.models.polar import CodeSpec
 from polar_tpu_torch.models.presets import Preset
 from polar_tpu_torch.ops.mc import build_mc_step, count_errors, mc_draw
 from polar_tpu_torch.ops.philox import step_seed
-from polar_tpu_torch.ops.scl import BIG_STAGE_BACKENDS, build_scl_decoder
+from polar_tpu_torch.ops.scl import (BIG_STAGE_BACKENDS, SUBTREE_BACKENDS,
+                                     build_scl_decoder)
 from polar_tpu_torch.sim.channel import ebn0_to_sigma
 from polar_tpu_torch.utils.device import resolve_device
 
@@ -40,7 +41,7 @@ BACKENDS = ("torch", "fused")
 
 def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
                  backend: str = "torch", device="cuda",
-                 big_stage_backend: str = "xla"):
+                 big_stage_backend: str = "xla", subtree_backend: str = "none"):
     """Monte-Carlo step: step(seed, snr_index, rng_step, sigma, batch) ->
     {"frames": int, "frame_errors": tensor, "bit_errors": tensor}, the
     counters as device tensors (fetching them is the caller's sync).
@@ -49,11 +50,15 @@ def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
     keyed by step_seed(seed, snr_index, rng_step, sub); the counters are
     summed on the device. backend: "torch" (mc_draw + build_scl_decoder)
     or "fused" (the one-kernel step, build_mc_step counters mode).
-    big_stage_backend: passed to build_scl_decoder by the "torch" backend
-    ("pallas": the hybrid decoder with the CUDA stage kernel); the "fused"
-    step has its own l > 2 code and ignores it, as in the JAX package."""
+    big_stage_backend, subtree_backend: passed to build_scl_decoder by the
+    "torch" backend ("pallas": the hybrid decoder with the CUDA stage
+    kernel; the subtree route with one CUDA subtree-kernel launch a
+    depth-1 child, mixed_scl32's route); the "fused" step has its own l > 2
+    code and ignores both, as the JAX package's ignores big_stage_backend."""
     if big_stage_backend not in BIG_STAGE_BACKENDS:
         raise ValueError(f"unknown big_stage_backend {big_stage_backend!r}")
+    if subtree_backend not in SUBTREE_BACKENDS:
+        raise ValueError(f"unknown subtree_backend {subtree_backend!r}")
     dev = resolve_device(device)
     if backend == "fused":
         fused = build_mc_step(spec, list_size, dev, counters=True)
@@ -63,7 +68,8 @@ def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
             return fe, be
     elif backend == "torch":
         decode = build_scl_decoder(spec, list_size, device=dev,
-                                   big_stage_backend=big_stage_backend)
+                                   big_stage_backend=big_stage_backend,
+                                   subtree_backend=subtree_backend)
 
         def one(key, sigma, batch):
             u_true, llr = mc_draw(spec, key, sigma, batch, dev)
@@ -129,7 +135,8 @@ def run_sweep(preset: Preset, frames: int | None = None,
               jsonl_path: str | None = None, min_frame_errors: int = 0,
               progress: bool = True, steps_per_call: int = 1,
               backend: str = "torch", big_stage_backend: str = "xla",
-              pipeline_depth: int = 2, mesh=None) -> list[dict]:
+              subtree_backend: str = "none", pipeline_depth: int = 2,
+              mesh=None) -> list[dict]:
     """Run the Monte-Carlo FER sweep for a preset on `device` (the card
     unless the caller asks for the CPU). Returns per-SNR records.
 
@@ -151,7 +158,8 @@ def run_sweep(preset: Preset, frames: int | None = None,
     batch = per_device_batch or preset.batch
     step = make_mc_step(preset.spec, preset.list_size,
                         steps_per_call=steps_per_call, backend=backend,
-                        device=dev, big_stage_backend=big_stage_backend)
+                        device=dev, big_stage_backend=big_stage_backend,
+                        subtree_backend=subtree_backend)
 
     state = None
     spath = pathlib.Path(state_path) if state_path else None

@@ -3,8 +3,9 @@
     python -m polar_tpu_torch.sim.kernel_times [--reps 5] [--batch 8192]
 
 For `ca_scl` (L=8): K1 (`scl_decode`) on channel LLRs at 2.0 dB and K5
-(`scl_mc_counters`, the whole Monte-Carlo step); for `bch_sc` (L=1), where
-the checkout decodes it: K2 (`scl_decode_traj`) and K5. Each time is the
+(`scl_mc_counters`, the whole Monte-Carlo step); for `arikan_sc` (L=1): K2
+(`scl_decode_traj`); for `bch_sc` (L=1), where the checkout decodes it: K2
+and K5. Each time is the
 mean of 20 launches after 2 warm-up launches, repeated `--reps` times.
 Prints one JSON line a kernel and preset, with the card's name and power
 limit. It uses only entry points that earlier versions of the port have,
@@ -54,6 +55,7 @@ def main(argv=None) -> None:
     B = args.batch
     gen = torch.Generator(device=dev).manual_seed(7)
     for name, kernels in (("ca_scl", ("scl_decode", "scl_mc_counters")),
+                          ("arikan_sc", ("scl_decode_traj",)),
                           ("bch_sc", ("scl_decode_traj", "scl_mc_counters"))):
         preset = get_preset(name)
         spec, L = preset.spec, preset.list_size

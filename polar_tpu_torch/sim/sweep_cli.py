@@ -14,6 +14,14 @@ kernel (ops/cuda_stage.py). For eBCH and mixed presets:
     python -m polar_tpu_torch.sim.sweep_cli --preset bch_sc --backend fused
     python -m polar_tpu_torch.sim.sweep_cli --preset bch_sc --big-stage pallas
 
+`mixed_scl32` (N=4096, L=32) does not fit one thread block: the JAX
+package's route is the hybrid, and `--subtree pallas` (the JAX
+`subtree_backend` knob) adds one CUDA subtree-kernel launch a depth-1
+child:
+
+    python -m polar_tpu_torch.sim.sweep_cli --preset mixed_scl32 \
+        --backend torch --big-stage pallas [--subtree pallas]
+
 Not ported yet: `--profile` (ROADMAP Queue 1 item 10); it raises
 NotImplementedError.
 """
@@ -56,6 +64,10 @@ def main(argv=None):
                         "in the CUDA decode kernel; pallas = the hybrid "
                         "decoder, one CUDA stage-kernel launch per l>2 "
                         "DOWN op (the fused backend ignores it)")
+    p.add_argument("--subtree", choices=("none", "pallas"), default="none",
+                   help="torch backend: pallas = each depth-1 child of the "
+                        "code one CUDA subtree-kernel launch (the fused "
+                        "backend ignores it)")
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="calls in flight before fetching counters "
                         "(1 = fetch every call)")
@@ -80,6 +92,7 @@ def main(argv=None):
                      min_frame_errors=args.min_frame_errors,
                      steps_per_call=args.steps_per_call, backend=args.backend,
                      big_stage_backend=args.big_stage,
+                     subtree_backend=args.subtree,
                      pipeline_depth=args.pipeline_depth)
     print(json.dumps({"summary": [
         {"ebn0_db": r["ebn0_db"], "fer": r["fer"], "ber": r["ber"],

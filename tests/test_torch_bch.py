@@ -32,9 +32,10 @@ CRC8 = JCrcSpec(8, 0x07, 0)
 BATCH = 64
 
 # (factors, K, L, crc): pure eBCH, BCH-major and Arikan-major mixed, and
-# the mixed_scl32 kernel mix at L = 8 with a CRC
+# the mixed_scl32 kernel mix at L = 8 and 32 with a CRC
 SPECS = [((16,), 6, 1, None), ((16,), 6, 4, None), ((16, 2), 12, 2, None),
-         ((2, 16), 10, 4, CRC8), ((16, 2, 2), 20, 8, CRC8)]
+         ((2, 16), 10, 4, CRC8), ((16, 2, 2), 20, 8, CRC8),
+         ((16, 2, 2), 20, 32, CRC8)]
 
 
 @functools.lru_cache(maxsize=None)

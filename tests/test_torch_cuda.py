@@ -306,3 +306,107 @@ def test_bch_sc_sweep_routes_agree_on_card(cuda):
         for a, b in zip(runs[0], recs):
             assert a["frame_errors"] == b["frame_errors"] > 0
             assert a["bit_errors"] == b["bit_errors"]
+
+
+# ---- list capacity 32 and the subtree kernel (K3) ----
+
+_SUBTREE = [((2, 2, 2, 2, 2), 12, None), ((2, 16, 2), 14, CrcSpec(8, 0x07, 0)),
+            ((16, 2, 2, 2), 40, CrcSpec(8, 0x07, 0))]
+
+
+@pytest.mark.parametrize("L", [1, 4, 32])
+@pytest.mark.parametrize("factors,K,crc", _SUBTREE)
+def test_subtree_kernel_matches_plain(cuda, factors, K, crc, L):
+    """Every depth-1 child of more than one op, on a path-bound input
+    (a different row and metric a path)."""
+    from polar_tpu_torch.ops.program import build_program, subtree_items, subtree_spec
+    spec = _mixed(factors, K, crc)
+    subs = [it for it in subtree_items(build_program(spec, scl=L > 1), spec)
+            if it[0] == "sub"]
+    assert subs
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    for _, _, fr in subs:
+        core = cuda_scl.SubtreeKernel(subtree_spec(spec, fr), L)
+        lam = 2.5 * torch.randn((L, core.spec.N, 256), generator=gen, device=cuda)
+        pm = 3.0 * torch.rand((L, 256), generator=gen, device=cuda)
+        before = cuda_scl.LAUNCHES["scl_subtree"]
+        got = core(lam, pm)
+        assert cuda_scl.LAUNCHES["scl_subtree"] == before + 1
+        _same(got, core.plain(lam, pm))
+
+
+@pytest.mark.parametrize("L", [4, 32])
+@pytest.mark.parametrize("factors,K,crc", _SUBTREE)
+def test_subtree_route_matches_kernel_decode(cuda, factors, K, crc, L):
+    """build_scl_decoder(subtree_backend="pallas") with either stage route
+    == the decode kernel (K1), one K3 launch a child."""
+    from polar_tpu_torch.ops.program import build_program, subtree_items
+    spec = _mixed(factors, K, crc)
+    n_subs = sum(it[0] == "sub" for it in subtree_items(build_program(spec, scl=True),
+                                                         spec))
+    x = torch.as_tensor(2.0 * np.random.default_rng(L).standard_normal((256, spec.N)),
+                        dtype=torch.float32, device=cuda)
+    ref = build_scl_decoder(spec, L, device=cuda)(x)
+    for big in ("xla", "pallas"):
+        dec = build_scl_decoder(spec, L, device=cuda, subtree_backend="pallas",
+                                big_stage_backend=big)
+        before = cuda_scl.LAUNCHES["scl_subtree"]
+        _equal(dec(x), ref)
+        assert cuda_scl.LAUNCHES["scl_subtree"] == before + n_subs
+
+
+@pytest.mark.parametrize("L", [9, 16, 32])
+@pytest.mark.parametrize("factors,K,crc", [((2,) * 6, 20, CrcSpec(8, 0x07, 0)),
+                                           ((16, 2, 2), 20, CrcSpec(8, 0x07, 0)),
+                                           ((2, 16, 2), 14, None)])
+def test_capacity32_kernels_match_plain(cuda, factors, K, crc, L):
+    """K1, K2 (Gaussian and integer LLRs) and K4, K5 (injected noise) at
+    list sizes 9..32: the capacity-32 instances."""
+    from polar_tpu_torch.ops.mc import build_mc_step
+    spec = _mixed(factors, K, crc)
+    rng = np.random.default_rng(spec.N + L)
+    for v in (2.0 * rng.standard_normal((256, spec.N)) + 0.5,
+              np.round(3.0 * rng.standard_normal((256, spec.N)))):
+        x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        for select in (True, False):
+            dec = cuda_scl.SclDecoder(spec, L, cuda, select=select)
+            _equal(dec.kernel(x), dec.plain(x))
+            if not select:
+                _same(dec.trajectory(x), dec.plain_trajectory(x))
+    step = build_mc_step(spec, L, device=cuda)
+    noise = torch.as_tensor(rng.standard_normal((256, spec.N)), dtype=torch.float32,
+                            device=cuda)
+    _same(step.trajectory((7, 8), 0.8, 256, noise),
+          step.plain_trajectory((7, 8), 0.8, 256, noise))
+    assert torch.equal(step.counts((7, 8), 0.8, 256, noise),
+                       step.plain_counts((7, 8), 0.8, 256, noise))
+
+
+def test_golden_mixed_replay_on_card(cuda):
+    """results/golden_mixed_scl_b128.npz (N=512, (16,2,2,2,2,2), L=8)
+    through K1 and through the subtree route (K3 on Arikan children)."""
+    spec, L, llrs, u_ref = load_golden(ROOT / "results" / "golden_mixed_scl_b128.npz")
+    for kw in ({}, {"subtree_backend": "pallas", "big_stage_backend": "pallas"}):
+        out = build_scl_decoder(spec, L, device=cuda, **kw)(llrs)
+        assert int((out.u.cpu().numpy() != u_ref).any(axis=1).sum()) == 0
+
+
+def test_mixed_scl32_children_and_default_route(cuda):
+    """mixed_scl32 (N=4096, L=32): K3 == plain on all 13 children; the
+    decode kernels' state does not fit a block, and the error names the
+    subtree route."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops.program import build_program, subtree_items, subtree_spec
+    spec = mixed_scl32().spec
+    subs = [it for it in subtree_items(build_program(spec, scl=True), spec)
+            if it[0] == "sub"]
+    assert len(subs) == 13
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    for _, _, fr in subs:
+        core = cuda_scl.SubtreeKernel(subtree_spec(spec, fr), 32)
+        lam = 3.0 * torch.randn((32, 256, 64), generator=gen, device=cuda)
+        pm = 4.0 * torch.rand((32, 64), generator=gen, device=cuda)
+        _same(core(lam, pm), core.plain(lam, pm))
+    dec = build_scl_decoder(spec, 32, device=cuda)
+    with pytest.raises(ValueError, match="subtree_backend"):
+        dec.kernel(torch.zeros((4, 4096), device=cuda))

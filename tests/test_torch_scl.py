@@ -38,6 +38,7 @@ CASES = [
     (16, 1, None), (16, 2, CRC8), (16, 3, None), (16, 4, CRC8), (16, 8, None),
     (32, 1, CRC16), (32, 2, None), (32, 3, CRC8), (32, 4, CRC16), (32, 8, CRC8),
     (64, 1, CRC8), (64, 2, CRC16), (64, 3, None), (64, 4, CRC8), (64, 8, CRC16),
+    (64, 32, CRC8),
 ]
 
 
@@ -88,7 +89,7 @@ def test_fork_tie_order_matches_top_k():
     """2P -> P fork on integer metrics full of ties: the same survivors in
     the same order as lax.top_k on the negated candidates."""
     rng = np.random.default_rng(0)
-    for P in (2, 3, 4, 5, 8):
+    for P in (2, 3, 4, 5, 8, 16, 32):
         pm = rng.integers(0, 4, (P, 128)).astype(np.float32)
         pen0 = rng.integers(0, 3, (P, 128)).astype(np.float32)
         pen1 = rng.integers(0, 3, (P, 128)).astype(np.float32)
@@ -154,14 +155,15 @@ def test_unported_options_raise():
     spec = spec_from_reference(_jax_spec(16, None))
     for kw in ({"genie": True}, {"fast": False}, {"unroll": False},
                {"f_mode": "exact"}, {"pm_mode": "smooth"},
-               {"llr_dtype": torch.bfloat16}, {"subtree_backend": "pallas"},
-               {"fast_r1_scl": False}):
+               {"llr_dtype": torch.bfloat16}, {"fast_r1_scl": False}):
         with pytest.raises(NotImplementedError):
             t_scl.build_scl_decoder(spec, 2, device="cpu", **kw)
     with pytest.raises(ValueError):
-        t_scl.build_scl_decoder(spec, 9, device="cpu")
+        t_scl.build_scl_decoder(spec, 33, device="cpu")
     with pytest.raises(ValueError):
         t_scl.build_scl_decoder(spec, 2, device="cpu", big_stage_backend="mosaic")
+    with pytest.raises(ValueError):
+        t_scl.build_scl_decoder(spec, 2, device="cpu", subtree_backend="mosaic")
     with pytest.raises(NotImplementedError, match="kernel sizes"):
         t_scl.build_scl_decoder(
             t_polar.CodeSpec(N=3, K=1, factors=(3,), frozen_mask=(1, 1, 0)), 1,
