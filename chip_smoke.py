@@ -10,11 +10,16 @@ grid) through polar_tpu_torch.sim.harness; the eBCH code `bch_sc`
 through the same kernels' l > 2 branch, the fused sweep, and the hybrid
 decoder with the stage kernel of polar_tpu_torch/csrc/stage_down.cu; and
 `mixed_scl32` (N=4096, L=32) through the subtree kernel of
-scl_decode.cu, one launch a depth-1 child.
+scl_decode.cu, one launch a depth-1 child. Arikan specs at list sizes
+<= 8 decode through the redesigned Arikan capacity-8 body of
+scl_decode.cu (128 threads a codeword, packed bits, rank forks), every
+other spec through its general body.
 Phases (any failure exits non-zero):
 
 1. device: name, count, nvidia-smi name and power limit;
-2. build: one nvcc a source, started together; seconds and ptxas report;
+2. build: one nvcc a source, and one for the op-kind clock build of
+   scl_decode.cu (phase 23), all started together; seconds, ptxas's
+   registers and spills of each instance, threads a block;
 3. golden replay: results/golden_ca_scl_b256.npz (256 frames recorded
    from the independent C++ decoder) through scl_decode, 0 mismatches;
 4. scl_decode == plain PyTorch version on the card, bit for bit (u,
@@ -94,7 +99,10 @@ Phases (any failure exits non-zero):
    size: L=8 (K1) > L=16 (K1, capacity 32) > L=32 (the K3 route);
 22. times at mixed_scl32, B=256 and 2048: the 13 K3 launches, the 15 outer
    K6 launches (each with plain version and bound) and the whole decode
-   through the K3 route and through the hybrid.
+   through the K3 route and through the hybrid;
+23. the op-kind split of K5 and K1 at ca_scl, B=8192, through the op-kind
+   clock build of scl_decode.cu (-DSCL_CLOCK, sim/kernel_times.py
+   `split`): cycles a block by op kind.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -915,18 +923,30 @@ def main() -> int:
           f"cuda={torch.version.cuda}")
     print(f"card: {card}")
 
-    # ---- 2. build: one nvcc a source, all started together ----
-    cuda_build.build_all()
-    cuda_scl.load_library()
+    # ---- 2. build: one nvcc a source and the clock build, all started together ----
+    cuda_build.build_all(clock=True)
+    lib = cuda_scl.load_library()
     cuda_stage.load_library()
     for src, info in cuda_build.build_info.items():
         print(f"build: {src} {info['seconds']:.2f} s -> {info['library']}")
+        if cuda_build.CLOCK_FLAG in src:
+            continue
         entry = "?"
         for line in info["ptxas"].splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else "?"
             if "registers" in line or "spill" in line:
                 print(f"ptxas: {entry}: {line.strip()}")
+    print(f"threads a block: Arikan capacity-8 instances (scl_decode, "
+          f"scl_decode_traj, scl_mc_traj, scl_mc_counters; 2x2 kernels, L <= 8) "
+          f"{lib.scl_block_threads(3, 8, 0)}; l > 2, capacity 32 and scl_subtree "
+          f"{lib.scl_block_threads(4, 8, 1)}")
+    ca_kernels = cuda_scl.SclKernels(ca_scl().spec, 8)
+    print("blocks an SM at ca_scl L=8 (dynamic, static shared memory a block): "
+          + ", ".join(f"{k} {ca_kernels.blocks_per_sm(k, dev)} "
+                      f"{ca_kernels.smem_bytes(k, dev)}"
+                      for k in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
+                                "scl_mc_counters")))
 
     preset = ca_scl()
     spec, L = preset.spec, preset.list_size
@@ -1304,6 +1324,10 @@ def main() -> int:
                                         rows, main_launches)
     mixed_rows = mixed_phases(dev, card, rng, check, err, main_path, rows,
                               main_launches)
+
+    # ---- 23. the op-kind split of K5 and K1 at ca_scl ----
+    from polar_tpu_torch.sim.kernel_times import split
+    split(BATCH, dev, card)
 
     for name in KERNELS:
         r = rows[name]

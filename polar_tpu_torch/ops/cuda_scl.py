@@ -14,7 +14,11 @@ per codeword):
                      (`SubtreeKernel`, the subtree route of ops/scl.py).
 
 Each has instances for specs with l > 2 kernels (eBCH, mixed) and for list
-capacities 8 and 32, chosen at launch. This module builds the op table
+capacities 8 and 32, chosen at launch by a rule of the spec's shape:
+Arikan specs (2x2 kernels only) at P <= 8 go to the Arikan capacity-8 body
+(`arikan8`: 128 threads a codeword, decisions and trajectory bits packed
+in words, `fast_smem_bytes`), every other spec and the subtree kernel to
+the general body (256 threads). This module builds the op table
 from the fast-SSCL program (ops/program.py) and the per-stage tables,
 compiles the source with nvcc at first use into a shared library with a
 plain C interface under build/ at the repository root (git-ignored;
@@ -23,9 +27,15 @@ ops/cuda_build.py), and loads it with ctypes.
 `SclDecoder.kernel(llrs)` is the decode wrapper: a CUDA tensor goes to the
 kernel (or the call raises), a CPU tensor to the plain PyTorch version
 (ops/scl.py). `LAUNCHES[name]` counts each kernel's launches.
+
+`clock_build()` sends the launches inside it to the op-kind clock build
+of the same source (`-DSCL_CLOCK`: cycles by op kind of the first blocks,
+`read_clock`). Only sim/kernel_times.py --split and chip_smoke.py's split
+phase load it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -51,8 +61,39 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _KIND = {"DOWN_FRESH": 0, "DOWN_DYN": 1, "UP": 2, "R0": 3, "REP": 4,
          "R1": 5, "SPC": 6, "LEAF": 7}
 _LEAF_FROZEN = 8
-_THREADS = 256
+_THREADS = 256            # the general body's threads a codeword
 _MAX_STAGES = 17
+# static shared memory of the Arikan capacity-8 body (`Fast` in the source)
+FAST_STATIC_BYTES = 1232
+
+# `arikan8`, `fast_smem_bytes` and FAST_STATIC_BYTES model the source's
+# rule and layout on the host (the launches take the library's own
+# figures); tests/test_torch_cuda.py holds them to the library.
+
+
+def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
+    """Whether `kernel` decodes (spec, list_size) with the Arikan
+    capacity-8 body: every kernel but scl_subtree, for specs of 2x2
+    kernels only at list sizes <= 8 (the source's `arikan8`)."""
+    return (kernel != "scl_subtree" and all(f == 2 for f in spec.factors)
+            and int(list_size) <= 8)
+
+
+def fast_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Dynamic shared memory of the Arikan capacity-8 body (the source's
+    `fast_layout`): LLR buffers P*(N-1) f32, the channel LLRs N f32
+    (Monte-Carlo kernels), decision words (two children of ceil(P*n_s/32)
+    words a stage), trajectory rows (P rows of ceil(N/32) words), 8-byte
+    path maps (3 a stage, 8-aligned), span perms and suffix indices (Q*P
+    bytes each), u_true N bytes (Monte-Carlo kernels)."""
+    N, P, m = spec.N, int(list_size), len(spec.factors)
+    mc = kernel in ("scl_mc_traj", "scl_mc_counters")
+    Q = len(trajectory_spans(spec, P))
+    off = 4 * P * (N - 1) + (4 * N if mc else 0)
+    off += sum(8 * -(-P * (N >> s) // 32) for s in range(1, m + 1))
+    off += 4 * P * -(-N // 32)
+    off = -(-off // 8) * 8
+    return off + 24 * m + 2 * Q * P + (N if mc else 0)
 
 
 def max_maps(list_size: int) -> int:
@@ -62,7 +103,13 @@ def max_maps(list_size: int) -> int:
     return (2 if int(list_size) <= 8 else 8) * _THREADS
 
 
-_lib = None
+# the op-kind clock build's slots, in the source's `ClockSlot` order
+CLOCK_SLOTS = ("setup", "prologue", "DOWN", "UP", "R0", "REP sums",
+               "REP fork", "R1/SPC select", "R1/SPC chain", "R1/SPC decide",
+               "apply_perm", "inverse", "epilogue")
+
+_libs: dict = {}          # clock build? -> loaded library
+_clock = False            # whether launches go to the clock build
 
 
 class StageTab(ctypes.Structure):
@@ -89,14 +136,15 @@ class SclArgs(ctypes.Structure):
 _POINTERS = {name for name, kind in SclArgs._fields_ if kind is ctypes.c_void_p}
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library;
+def load_library(clock: bool | None = None) -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library
+    (the op-kind clock build if `clock`; None: the one launches go to);
     cuda_build.build_info["scl_decode.cu"] holds the build seconds and
     nvcc's ptxas report."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(cuda_build.build("scl_decode.cu")))
+    clock = _clock if clock is None else bool(clock)
+    if clock in _libs:
+        return _libs[clock]
+    lib = ctypes.CDLL(str(cuda_build.build("scl_decode.cu", clock)))
     ci = ctypes.c_int
     lib.scl_launch.argtypes = [ci, ctypes.POINTER(SclArgs), ctypes.c_void_p]
     lib.scl_launch.restype = ci
@@ -106,13 +154,50 @@ def load_library() -> ctypes.CDLL:
     lib.scl_args_bytes.restype = ci
     lib.scl_decode_max_smem_bytes.argtypes = []
     lib.scl_decode_max_smem_bytes.restype = ci
-    lib.scl_static_smem_bytes.argtypes = [ci]
+    lib.scl_static_smem_bytes.argtypes = [ci, ci, ci]
     lib.scl_static_smem_bytes.restype = ci
+    lib.scl_block_threads.argtypes = [ci, ci, ci]
+    lib.scl_block_threads.restype = ci
+    lib.scl_blocks_per_sm.argtypes = [ci, ctypes.POINTER(SclArgs)]
+    lib.scl_blocks_per_sm.restype = ci
     if lib.scl_args_bytes() != ctypes.sizeof(SclArgs):
         raise RuntimeError(f"SclArgs is {lib.scl_args_bytes()} B in the "
                            f"library, {ctypes.sizeof(SclArgs)} B here")
-    _lib = lib
+    if clock:
+        lib.scl_clock_slots.restype = ci
+        lib.scl_clock_reset.restype = ci
+        lib.scl_clock_read.argtypes = [ctypes.c_void_p]
+        lib.scl_clock_read.restype = ci
+        if lib.scl_clock_slots() != len(CLOCK_SLOTS):
+            raise RuntimeError(f"{lib.scl_clock_slots()} clock slots in the "
+                               f"library, {len(CLOCK_SLOTS)} here")
+    _libs[clock] = lib
     return lib
+
+
+@contextlib.contextmanager
+def clock_build():
+    """Launches inside go to the op-kind clock build, its clock set to 0
+    on entry; yields the library."""
+    global _clock
+    lib = load_library(True)
+    if lib.scl_clock_reset() != 0:
+        raise RuntimeError("scl_clock_reset failed")
+    saved, _clock = _clock, True
+    try:
+        yield lib
+    finally:
+        _clock = saved
+
+
+def read_clock(lib: ctypes.CDLL) -> dict:
+    """{slot: cycles summed over the measured blocks, "blocks": count} of
+    an instrumented library since its last reset (synchronises)."""
+    out = (ctypes.c_ulonglong * (len(CLOCK_SLOTS) + 1))()
+    torch.cuda.synchronize()
+    if lib.scl_clock_read(ctypes.addressof(out)) != 0:
+        raise RuntimeError("scl_clock_read failed")
+    return dict(zip(CLOCK_SLOTS + ("blocks",), (int(v) for v in out)))
 
 
 def stage_tables(spec: CodeSpec, P: int):
@@ -234,33 +319,52 @@ class SclKernels:
                              "positions")}
         return self._dev_tables[key]
 
+    def _args(self, batch: int, device: torch.device, **fields) -> SclArgs:
+        dt = self.device_tables(device)
+        t = self.tables
+        fields = {k: _ptr(v) if k in _POINTERS else v
+                  for k, v in fields.items()}
+        return SclArgs(ops=_ptr(dt["ops"]), qrow=_ptr(dt["qrow"]),
+                       pidx=_ptr(dt["pidx"]), gmask=_ptr(dt["gmask"]),
+                       st=_ptr(dt["st"]), offmask=t["offmask"],
+                       n_ops=int(t["ops"].shape[0]), N=self.spec.N,
+                       m=len(self.spec.factors), P=self.P, Q=t["Q"], K=t["K"],
+                       W=t["W"], B=int(batch), n_lam=t["n_lam"],
+                       n_dec=t["n_dec"], n_maps=t["n_maps"], big=t["big"],
+                       **fields)
+
+    def smem_bytes(self, name: str, device: torch.device,
+                   args: SclArgs | None = None) -> tuple[int, int]:
+        """(dynamic, static) shared memory a block of kernel `name` takes,
+        from the library."""
+        lib = load_library()
+        args = self._args(1, device) if args is None else args
+        return (lib.scl_smem_bytes(KERNELS[name], ctypes.byref(args)),
+                lib.scl_static_smem_bytes(KERNELS[name], self.P, args.big))
+
+    def blocks_per_sm(self, name: str, device: torch.device) -> int:
+        """Blocks of kernel `name` an SM holds at once (the occupancy API)."""
+        with torch.cuda.device(device):
+            return load_library().scl_blocks_per_sm(
+                KERNELS[name], ctypes.byref(self._args(1, device)))
+
     def launch(self, name: str, batch: int, device: torch.device,
                **fields) -> None:
         """Launch kernel `name` over `batch` codewords on the device's
         current stream. `fields` are the SclArgs entries of this kernel:
         tensors for the pointers, numbers for the scalars."""
         lib = load_library()
-        dt = self.device_tables(device)
-        t = self.tables
-        spec, P = self.spec, self.P
-        fields = {k: _ptr(v) if k in _POINTERS else v
-                  for k, v in fields.items()}
-        args = SclArgs(ops=_ptr(dt["ops"]), qrow=_ptr(dt["qrow"]),
-                       pidx=_ptr(dt["pidx"]), gmask=_ptr(dt["gmask"]),
-                       st=_ptr(dt["st"]), offmask=t["offmask"],
-                       n_ops=int(t["ops"].shape[0]), N=spec.N,
-                       m=len(spec.factors), P=P, Q=t["Q"], K=t["K"], W=t["W"],
-                       B=int(batch), n_lam=t["n_lam"], n_dec=t["n_dec"],
-                       n_maps=t["n_maps"], big=t["big"], **fields)
-        smem = lib.scl_smem_bytes(KERNELS[name], ctypes.byref(args))
+        args = self._args(batch, device, **fields)
+        smem, static = self.smem_bytes(name, device, args)
         # the launch (and its cudaFuncSetAttribute) acts on the current
         # device: make it the tensors' device
         with torch.cuda.device(device):
             limit = lib.scl_decode_max_smem_bytes()
-            if smem + lib.scl_static_smem_bytes(P) > limit:
+            if smem + static > limit:
                 raise ValueError(
-                    f"decode state of N={spec.N}, L={P}: {smem} B exceeds the "
-                    f"{limit} B of shared memory a block may use; decode it "
+                    f"decode state of N={self.spec.N}, L={self.P}: {smem} B "
+                    f"exceeds the {limit} B of shared memory a block may "
+                    "use; decode it "
                     "with build_scl_decoder(..., subtree_backend='pallas', "
                     "big_stage_backend='pallas'), one subtree-kernel launch "
                     "a depth-1 child")

@@ -410,3 +410,83 @@ def test_mixed_scl32_children_and_default_route(cuda):
     dec = build_scl_decoder(spec, 32, device=cuda)
     with pytest.raises(ValueError, match="subtree_backend"):
         dec.kernel(torch.zeros((4, 4096), device=cuda))
+
+
+# ---- the Arikan capacity-8 body (K1, K2, K4, K5 of Arikan specs, P <= 8) ----
+
+def _all_four(spec, L, cuda, llr, noise, sigma):
+    """K1, K2 (+ epilogue) on llr and K4, K5 on noise == plain, bit for bit."""
+    from polar_tpu_torch.ops.mc import build_mc_step
+    dec = cuda_scl.SclDecoder(spec, L, cuda, select=True)
+    _equal(dec.kernel(llr), dec.plain(llr))
+    tdec = cuda_scl.SclDecoder(spec, L, cuda, select=False)
+    traj = tdec.trajectory(llr)
+    _same(traj, tdec.plain_trajectory(llr))
+    _equal(tdec.epilogue(*traj), tdec.plain(llr))
+    step = build_mc_step(spec, L, device=cuda)
+    B = noise.shape[0]
+    _same(step.trajectory((5, 6), sigma, B, noise),
+          step.plain_trajectory((5, 6), sigma, B, noise))
+    assert torch.equal(step.counts((5, 6), sigma, B, noise),
+                       step.plain_counts((5, 6), sigma, B, noise))
+
+
+@pytest.mark.parametrize("L", [3, 5, 7, 8])
+@pytest.mark.parametrize("N,K,crc", [(64, 28, CrcSpec(8, 0x07, 0)),
+                                     (2048, 1000, CrcSpec(16, 0x1021, 0))])
+def test_arikan8_kernels_on_integer_llrs(cuda, N, K, crc, L):
+    """Integer LLRs and integer noise (sigma = 1): dense ties in metrics and
+    in the least-reliable positions, at odd P and at P = 8; N = 2048 has
+    33 path maps, more than the warp's 32 lanes."""
+    rng = np.random.default_rng(7 * N + L)
+    llr = torch.as_tensor(np.round(2.0 * rng.standard_normal((1024, N))),
+                          dtype=torch.float32, device=cuda)
+    noise = torch.as_tensor(np.round(1.5 * rng.standard_normal((1024, N))),
+                            dtype=torch.float32, device=cuda)
+    _all_four(_spec(N, K, crc), L, cuda, llr, noise, 1.0)
+
+
+def test_arikan8_kernels_on_ca_scl_at_0db(cuda):
+    """ca_scl with noise at 0 dB: many R1/SPC flips and diverged paths."""
+    from polar_tpu_torch.ops.mc import mc_draw
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    spec = ca_scl().spec
+    sigma = float(ebn0_to_sigma(0.0, spec.rate))
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    noise = torch.randn((2048, spec.N), generator=gen, device=cuda)
+    _, llr = mc_draw(spec, (9, 10), sigma, 2048, cuda, noise)
+    _all_four(spec, 8, cuda, llr, noise, sigma)
+
+
+@pytest.mark.parametrize("L", [1, 4, 8])
+def test_arikan8_kernels_on_huge_magnitudes(cuda, L):
+    """LLRs at +-1e30, above it and one +-inf a codeword (no inf - inf in
+    a g step): the selection's rule at 1e30 equals extract_mins' rounds."""
+    spec = _spec(128, 56, CrcSpec(16, 0x1021, 0))
+    rng = np.random.default_rng(30 + L)
+    x = 3.0 * rng.standard_normal((1024, 128))
+    pick = rng.random(x.shape)
+    x = np.where(pick < 0.3, np.sign(x) * 1e30, x)
+    x = np.where((pick > 0.3) & (pick < 0.35), np.sign(x) * 4e30, x)
+    x[np.arange(1024), rng.integers(0, 128, 1024)] = np.inf * np.sign(rng.standard_normal(1024))
+    llr = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    noise = torch.as_tensor(np.where(pick < 0.3, 1e32, rng.standard_normal(x.shape)),
+                            dtype=torch.float32, device=cuda)
+    _all_four(spec, L, cuda, llr, noise, 0.8)
+
+
+def test_arikan8_shared_memory_mirror(cuda):
+    """The library's shared memory of the Arikan capacity-8 instances ==
+    the Python mirror (`fast_smem_bytes`, FAST_STATIC_BYTES); ca_scl's
+    K5 fits 5 blocks an SM, and the card holds 5."""
+    for N, L in ((16, 1), (64, 3), (1024, 8), (4096, 5)):
+        spec = ca_scl().spec if N == 1024 else _spec(N, N // 2, None)
+        k = cuda_scl.SclKernels(spec, L)
+        for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj", "scl_mc_counters"):
+            dyn, static = k.smem_bytes(name, cuda)
+            assert dyn == cuda_scl.fast_smem_bytes(spec, L, name), (N, L, name)
+            assert static == cuda_scl.FAST_STATIC_BYTES
+    k = cuda_scl.SclKernels(ca_scl().spec, 8)
+    dyn, static = k.smem_bytes("scl_mc_counters", cuda)
+    assert 5 * (dyn + static + 1024) <= 228 * 1024
+    assert k.blocks_per_sm("scl_mc_counters", cuda) == 5
