@@ -81,7 +81,9 @@ Phases (any failure exits non-zero):
    its plain version bit for bit on every child of small Arikan and mixed
    specs at L = 1, 4, 32, on path-bound inputs with diverged metrics;
 19. mixed_scl32 (N=4096 = 16 x 16 x 2^4, K=2048 + CRC-16, L=32; BASELINE
-   config 4) at the preset's batch 256 and 1.25 dB: one decode through the
+   config 4): K6 == plain bit for bit at its outer launches' shapes, (P,
+   n, B) = (1, 256, 256) and (32, 256, 256), every i < 15; at the
+   preset's batch 256 and 1.25 dB: one decode through the
    K3 route (`subtree_backend="pallas"`, `big_stage_backend="pallas"`)
    launches 13 K3 and 15 K6; K3 == plain on the 13 children's inputs
    captured from it; the route == the hybrid without K3 == the plain route
@@ -100,9 +102,10 @@ Phases (any failure exits non-zero):
 22. times at mixed_scl32, B=256 and 2048: the 13 K3 launches, the 15 outer
    K6 launches (each with plain version and bound) and the whole decode
    through the K3 route and through the hybrid;
-23. the op-kind split of K5 and K1 at ca_scl, B=8192, through the op-kind
+23. the op-kind split of K5 and K1 at ca_scl, B=8192, and of K3 on the
+   13 children of one mixed_scl32 decode (B=256), through the op-kind
    clock build of scl_decode.cu (-DSCL_CLOCK, sim/kernel_times.py
-   `split`): cycles a block by op kind.
+   `split`): cycles a block by op kind, the l > 2 DOWN ops by method.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -205,14 +208,32 @@ def _xors(t) -> int:
     return int(sum(max(int(c.sum()) - 1, 0) for c in np.asarray(t).T))
 
 
-def stage_down_ops(kernel, i: int) -> int:
+def half_tables(l: int) -> int:
+    """Adds that build the fixed tree's two half-subtree tables of an l x l
+    kernel level by level, one add an entry: pairs, quads, ... halves (608
+    at l = 16)."""
+    tables, w = 0, 2
+    while w <= l // 2:                  # subtree tables of w inputs
+        tables += (l // w) * (1 << w)
+        w *= 2
+    return tables
+
+
+def stage_down_ops(kernel, i: int, shared: bool = False) -> int:
     """Least element operations of input i of an l x l kernel (l > 2) for
-    one (path, position), from its coset-adjusted LLRs: i = l-1 a weighted
-    correlation (l multiplies, l - 1 adds); the syndrome trellis per
-    section a sign flip and, per hypothesis, 2 relus and per state 2 adds
-    and a min; the tail table per hypothesis and codeword l sign selects,
-    l - 1 adds and a max, then a subtraction and a halving."""
-    from polar_tpu_torch.ops.cuda_stage import processor
+    one (path, position), from its coset-adjusted LLRs, that give the
+    reference's floats: i = l-1 a weighted correlation (l multiplies,
+    l - 1 adds); the syndrome trellis per section a sign flip and, per
+    hypothesis, 2 relus and per state 2 adds and a min; the tail table
+    over the columns that must be walked (half of them where row l-1 is
+    all ones: a column and its complement give |corr|), the cheaper of
+    (a) the `half_tables`, then per column one parity XOR and per
+    hypothesis one add of the two halves and one max, and (b) per column
+    one parity XOR and per hypothesis l - 1 adds and a max; then a
+    subtraction and a halving. This is one launch of the stage kernel
+    (K6), whose input is one i. `shared`: the tables are built elsewhere
+    (once for every input of a node, `element_ops`) and not counted."""
+    from polar_tpu_torch.ops.cuda_stage import big_kernel, processor
 
     l = kernel.shape[0]
     if i == l - 1:
@@ -220,7 +241,33 @@ def stage_down_ops(kernel, i: int) -> int:
     proc = processor(kernel)
     if proc.backend[i] == "trellis":
         return l * (1 + 2 * (2 + 3 * proc.syn[i][0]))
-    return 2 * (1 << (l - 1 - i)) * 2 * l + 2
+    walk = int(big_kernel(kernel).walk[i])
+    if shared:
+        return walk * 5 + 2
+    return min(half_tables(l) + walk * 5, walk * (1 + 2 * l)) + 2
+
+
+def node_ops(kernel, inputs, P: int, rows: int) -> int:
+    """Least element operations, per position, of the DOWN ops of one node
+    of an l > 2 stage (its inputs i, all from one block of parent LLRs)
+    at P paths, the parent block holding `rows` distinct rows. The tail
+    tables of the raw parent LLRs depend only on the row and the position,
+    and a prior decisions' coset is an XOR of the lookup index, so the
+    `half_tables` are built once a row and read by every table input; each
+    table input costs its shared walk and one XOR of the coset (i > 0),
+    or, where cheaper, its `stage_down_ops` alone. The trellis and the
+    last input take the coset as l sign selects (i > 0)."""
+    from polar_tpu_torch.ops.cuda_stage import processor
+
+    l = kernel.shape[0]
+    proc = processor(kernel)
+    table = [i for i in inputs if i < l - 1 and proc.backend[i] != "trellis"]
+    other = sum(stage_down_ops(kernel, i) + (l if i else 0)
+                for i in inputs if i not in table)
+    alone = sum(stage_down_ops(kernel, i) + (1 if i else 0) for i in table)
+    shared = sum(stage_down_ops(kernel, i, shared=True) + (1 if i else 0)
+                 for i in table)
+    return P * other + min(rows * half_tables(l) + P * shared, P * alone)
 
 
 def inverse_xors(spec, d: int) -> int:
@@ -235,12 +282,13 @@ def inverse_xors(spec, d: int) -> int:
                for s in range(d, len(spec.factors)))
 
 
-def element_ops(spec, P: int, epilogue: bool = True) -> int:
+def element_ops(spec, P: int, epilogue: bool = True, root_rows: int = 1) -> int:
     """Least element operations of one codeword's decode, counted from the
     shapes of the fast-SSCL program, whatever the kernel does beyond them.
     Per path and output element: f 4 (2 abs, min, sign), g 2 (conditional
-    negate, add), UP 1 (xor); at an l > 2 stage the coset fold (l sign
-    selects for i > 0), `stage_down_ops`, and UP's GF(2) products; per
+    negate, add), UP 1 (xor); at an l > 2 stage the DOWN ops of each node
+    together (`node_ops`: tail tables once a row of the parent block, at
+    stage 1 `root_rows` rows, else P) and UP's GF(2) products; per
     path and input: R0 2 (relu, add), REP 4 (two relus, two adds); R1/SPC:
     a hard decision and an abs per input, the n_min least reliable inputs
     selected at ceil(log2(n_min + 1)) compares per input, one flip per
@@ -249,7 +297,9 @@ def element_ops(spec, P: int, epilogue: bool = True) -> int:
     adds of candidate metrics and 2P log2(2P) compares to rank them
     (survivors leave in rank order). Epilogue per path (only where the
     kernel runs it: `epilogue`): one word XOR of a CRC generator mask per
-    unfrozen bit, one compare of the argmin."""
+    unfrozen bit, one compare of the argmin. `root_rows`: rows of the
+    block stage 1 reads (1 for the channel LLRs, P for a child's
+    path-bound input)."""
     from polar_tpu_torch.ops.program import build_program
     from polar_tpu_torch.ops.schedule import build_schedule
 
@@ -257,6 +307,7 @@ def element_ops(spec, P: int, epilogue: bool = True) -> int:
     digits = build_schedule(spec).digits
     total = 0
     fork = 2 * P + 2 * P * int(math.log2(2 * P)) if P > 1 else 0
+    nodes = []              # (level, the inputs i of its DOWN ops), l > 2
     for op in build_program(spec, scl=P > 1).ops:
         n = ns[op.level]
         if op.kind in ("DOWN_FRESH", "DOWN_DYN"):
@@ -264,9 +315,11 @@ def element_ops(spec, P: int, epilogue: bool = True) -> int:
             l = kernel.shape[0]
             if l == 2:
                 total += (4 if op.kind == "DOWN_FRESH" else 2) * P * n
+            elif op.kind == "DOWN_FRESH":
+                nodes.append((op.level, [0]))
             else:
-                i = 0 if op.kind == "DOWN_FRESH" else int(digits[op.t0, op.level - 1])
-                total += P * n * ((l if i else 0) + stage_down_ops(kernel, i))
+                node = next(nd for nd in reversed(nodes) if nd[0] == op.level)
+                node[1].append(int(digits[op.t0, op.level - 1]))
         elif op.kind == "UP":
             total += P * n * (1 if spec.factors[op.level - 1] == 2 else
                               _xors(spec.kernels[op.level - 1]))
@@ -283,6 +336,9 @@ def element_ops(spec, P: int, epilogue: bool = True) -> int:
             select = n * math.ceil(math.log2(n_min + 1)) if n_min else 0
             total += (P * (2 * n + select + n_min + inverse_xors(spec, op.level)
                            + (n if spc else 0)) + rounds * fork)
+    for level, inputs in nodes:
+        total += ns[level] * node_ops(spec.kernels[level - 1], inputs, P,
+                                      root_rows if level == 1 else P)
     return total + (P * (spec.n_payload_slots + 1) if epilogue else 0)
 
 
@@ -401,7 +457,8 @@ def subtree_bound(sub, P: int, batch: int) -> dict:
     N, n1 = sub.N, sub.block_sizes[1]
     Q = len(trajectory_spans(sub, P))
     moved = 4 * P * N + 4 * P + N * P + Q * P + P + P * N + 4 * P
-    ops = element_ops(sub, P, epilogue=False) + P * n1 * _xors(sub.kernels[0])
+    ops = (element_ops(sub, P, epilogue=False, root_rows=P)
+           + P * n1 * _xors(sub.kernels[0]))
     return bound(table_bytes(sub, P) + batch * moved, batch * ops)
 
 
@@ -530,6 +587,20 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             SubtreeKernel.__call__ = call
         return out, calls
 
+    # K6 at the outer launches' shapes, every input i < 15
+    n1 = mspec.block_sizes[1]
+    n_k6 = 0
+    for paths in (1, P):
+        lam = 2.0 * torch.randn((paths, 16, n1, mixed.batch), generator=sgen,
+                                device=dev)
+        for i in range(15):
+            fn = cuda_stage.build_down_kernel(mspec.kernels[0], i, paths, n1)
+            check("stage_down", f"mixed_scl32 outer i={i} P={paths} n={n1} "
+                  f"B={mixed.batch}", [fn(lam)], [fn.plain(lam)])
+            n_k6 += 1
+    torch.cuda.synchronize()
+    print(f"stage_down == plain at mixed_scl32's outer shapes: {n_k6} cases "
+          f"bit-exact (every i < 15; P = 1, {P}; n={n1}; B={mixed.batch})")
     _, llr = mc_draw(mspec, step_seed(MIXED_SEED, 99, 0, 0), sigma, mixed.batch, dev)
     zero_launches()
     out_route, calls = captured(llr)
@@ -1325,7 +1396,7 @@ def main() -> int:
     mixed_rows = mixed_phases(dev, card, rng, check, err, main_path, rows,
                               main_launches)
 
-    # ---- 23. the op-kind split of K5 and K1 at ca_scl ----
+    # ---- 23. the op-kind split of K5 and K1 at ca_scl and of K3 at mixed_scl32 ----
     from polar_tpu_torch.sim.kernel_times import split
     split(BATCH, dev, card)
 

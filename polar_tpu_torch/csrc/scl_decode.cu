@@ -182,10 +182,13 @@ enum Output { kSelect = 0, kTrajectory = 1, kCounters = 2, kSubtree = 3 };
 // marks sit after the barriers that end each part, so a slot holds thread
 // 0's view of the block's time there (its own work and its wait for the
 // others). ops/cuda_scl.py CLOCK_SLOTS names the slots in this order.
+// kClkDown is the 2x2 f/g DOWN; an l > 2 DOWN (`big_down`) goes to the
+// slot of its input's method: the last input's single correlation, the
+// syndrome trellis or the tail table.
 enum ClockSlot {
   kClkSetup = 0, kClkPrologue, kClkDown, kClkUp, kClkR0, kClkRepSums,
   kClkRepFork, kClkSelect, kClkChain, kClkDecide, kClkPerm, kClkInverse,
-  kClkEpilogue, kClkSlots
+  kClkBigLast, kClkBigTrellis, kClkBigTable, kClkEpilogue, kClkSlots
 };
 #ifdef SCL_CLOCK
 constexpr int kClockBlocks = 128;
@@ -632,11 +635,13 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
     __syncthreads();
     return;
   }
-  // tail table: G lanes a position share its 2^(l-1-i) columns, up to
-  // the whole block when there are few positions
-  const int C = 1 << (l - 1 - i);
-  int G = 1;
-  while (G < kThreads && G < C && E * G * 2 <= kThreads) G *= 2;
+  // tail table: G lanes a position share the columns it walks, up to the
+  // whole block when there are few positions; at least a 16-lane group
+  // where the quad tables pay (bigstage::table_max)
+  const int walk = bigstage::table_walk(K, i);
+  int G = bigstage::table_quads(K, i, 16) ? 16 : 1;
+  while (G < kThreads && G < walk && E * G * 2 <= kThreads) G *= 2;
+  const bool quads = bigstage::table_quads(K, i, G);
   const int per = kThreads / G;
   const int gw = G < 32 ? G : 32;            // lanes of the group in a warp
   for (int base = 0; base < E; base += per) {
@@ -646,7 +651,7 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
     const int g = tid % G;
     big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
     float m0, m1;
-    bigstage::table_max(K, i, v, g, G, m0, m1);
+    bigstage::table_max(K, i, v, g, G, walk, quads, m0, m1);
     m0 = bigstage::group_max(m0, gw);
     m1 = bigstage::group_max(m1, gw);
     if (G <= 32) {
@@ -747,11 +752,13 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       if constexpr (BIG) {
         const BigKernel& bk = a.st[s].k;
         if (bk.l > 2) {
-          big_down(bk, kind == DOWN_FRESH ? 0 : child, out, x, par, rl, d0,
-                   rd0, P, n, sm.redf, tid, lane, warp);
+          const int bi = kind == DOWN_FRESH ? 0 : child;
+          big_down(bk, bi, out, x, par, rl, d0, rd0, P, n, sm.redf, tid,
+                   lane, warp);
           if (tid < P) rlam(s)[tid] = (unsigned char)tid;
           __syncthreads();
-          clk_mark(kClkDown);
+          clk_mark(bi == bk.l - 1 ? kClkBigLast
+                   : bk.states[bi] ? kClkBigTrellis : kClkBigTable);
           continue;
         }
       }
@@ -1851,6 +1858,8 @@ int scl_blocks_per_sm(int kernel, const SclArgs* a) {
 }
 
 int scl_args_bytes(void) { return (int)sizeof(SclArgs); }
+
+int scl_stage_tab_bytes(void) { return (int)sizeof(StageTab); }
 
 #ifdef SCL_CLOCK
 // the op-kind clock: slots then the count of blocks measured

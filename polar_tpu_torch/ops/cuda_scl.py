@@ -106,7 +106,8 @@ def max_maps(list_size: int) -> int:
 # the op-kind clock build's slots, in the source's `ClockSlot` order
 CLOCK_SLOTS = ("setup", "prologue", "DOWN", "UP", "R0", "REP sums",
                "REP fork", "R1/SPC select", "R1/SPC chain", "R1/SPC decide",
-               "apply_perm", "inverse", "epilogue")
+               "apply_perm", "inverse", "l>2 last", "l>2 trellis",
+               "l>2 table", "epilogue")
 
 _libs: dict = {}          # clock build? -> loaded library
 _clock = False            # whether launches go to the clock build
@@ -160,9 +161,13 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
     lib.scl_block_threads.restype = ci
     lib.scl_blocks_per_sm.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_blocks_per_sm.restype = ci
-    if lib.scl_args_bytes() != ctypes.sizeof(SclArgs):
-        raise RuntimeError(f"SclArgs is {lib.scl_args_bytes()} B in the "
-                           f"library, {ctypes.sizeof(SclArgs)} B here")
+    lib.scl_stage_tab_bytes.argtypes = []
+    lib.scl_stage_tab_bytes.restype = ci
+    for name, struct in (("scl_args_bytes", SclArgs),
+                         ("scl_stage_tab_bytes", StageTab)):
+        if getattr(lib, name)() != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} is {getattr(lib, name)()} B"
+                               f" in the library, {ctypes.sizeof(struct)} B here")
     if clock:
         lib.scl_clock_slots.restype = ci
         lib.scl_clock_reset.restype = ci

@@ -9,9 +9,9 @@ version, ops/kernel_proc.py StageProcessor.plain_llr.
 `LAUNCHES["stage_down"]` counts the launches.
 
 `big_kernel` builds the kernel's tables (also used by the decode kernels'
-l > 2 stages, ops/cuda_scl.py): the columns of K as bit masks, and per
-input i the syndrome-trellis state count (0 where the tail table is the
-cheaper backend, as StageProcessor chooses) and syndrome columns.
+l > 2 stages, ops/cuda_scl.py): the columns and rows of K as bit masks,
+and per input i the syndrome-trellis state count (0 where the tail table
+is the cheaper backend, as StageProcessor chooses) and syndrome columns.
 """
 from __future__ import annotations
 
@@ -35,12 +35,26 @@ SOURCE = cuda_build.CSRC / "stage_down.cu"
 _lib = None
 
 
+# A tail table whose walk is shorter than this many columns folds each
+# column directly; from here on it looks the column up in quad tables
+# (csrc/big_stage.cuh `table_max`), whose 16-lane group repeats the
+# element's loads and table build in every lane. Measured on an H100
+# (PERF.md §6, `kernel_times`): K6 at mixed_scl32's outer shape takes 0.79
+# ms with quads against 0.91 direct at a walk of 64, 0.68 against 0.47 at
+# 32; K3's 13 launches take 33.0 ms at a cut-over of 16, 31.9 at 64, 31.7
+# at 128, 32.2 at 256.
+QUAD_MIN_COLS = 64
+
+
 class BigKernel(ctypes.Structure):
     """Mirrors `bigstage::BigKernel` (csrc/big_stage.cuh)."""
     _fields_ = [("l", ctypes.c_int),
                 ("kcol", ctypes.c_ushort * MAX_L),
+                ("krow", ctypes.c_ushort * MAX_L),
                 ("states", ctypes.c_ubyte * MAX_L),
-                ("cols", (ctypes.c_ubyte * MAX_L) * MAX_L)]
+                ("cols", (ctypes.c_ubyte * MAX_L) * MAX_L),
+                ("walk", ctypes.c_ushort * MAX_L),
+                ("quads", ctypes.c_ushort)]
 
 
 class StageDownArgs(ctypes.Structure):
@@ -63,7 +77,14 @@ def processor(kernel: np.ndarray) -> StageProcessor:
 def big_kernel(kernel: np.ndarray) -> BigKernel:
     """The kernel tables of an l x l kernel, 2 <= l <= 16 (for l = 2 only
     the columns are used). Raises where an input's syndrome trellis would
-    need more states than a warp has lanes."""
+    need more states than a warp has lanes.
+
+    The tail-table rules are decided here, once, and the kernels read them
+    (for the inputs whose backend is the table): `walk[i]`, the columns a
+    lane group walks, is 2^(l-1-i), halved where
+    row l-1 is all ones (each column's complement is then walked with it,
+    as |corr|); bit i of `quads` is set where l is 8 or 16 and the walk is
+    at least QUAD_MIN_COLS columns (the quad tables pay there)."""
     kernel = np.asarray(kernel, np.uint8)
     l = int(kernel.shape[0])
     if not 2 <= l <= MAX_L:
@@ -71,8 +92,14 @@ def big_kernel(kernel: np.ndarray) -> BigKernel:
     bk = BigKernel(l=l)
     for k in range(l):
         bk.kcol[k] = int((kernel[:, k].astype(np.int64) << np.arange(l)).sum())
+        bk.krow[k] = int((kernel[k].astype(np.int64) << np.arange(l)).sum())
     if l == 2:
         return bk
+    pairs = bk.krow[l - 1] == (1 << l) - 1
+    for i in range(l - 1):
+        bk.walk[i] = 1 << (l - 1 - i - int(pairs))
+        if l in (8, 16) and bk.walk[i] >= QUAD_MIN_COLS:
+            bk.quads |= 1 << i
     proc = processor(kernel)
     for i in range(l - 1):
         if proc.backend[i] != "trellis":
@@ -106,14 +133,15 @@ def load_library() -> ctypes.CDLL:
 
 
 def lanes_for(bk: BigKernel, i: int, elements: int) -> int:
-    """Threads per output element: the trellis's state count, or for the
-    table a power of two <= 32 that spreads the columns when there are too
-    few elements to fill the card."""
+    """Threads per output element: the trellis's state count; for the
+    table 16 where the walk takes the quad tables (bit i of `bk.quads`),
+    else 1, doubled up to 32 (and up to the walk) while there are too few
+    elements to fill the card."""
     if bk.states[i]:
         return int(bk.states[i])
-    cols = 1 << (bk.l - 1 - i)
-    lanes = 1
-    while lanes < 32 and lanes < cols and elements * lanes < _FILL_THREADS:
+    walk = int(bk.walk[i])
+    lanes = 16 if (bk.quads >> i) & 1 else 1
+    while lanes < 32 and lanes < walk and elements * lanes < _FILL_THREADS:
         lanes *= 2
     return lanes
 

@@ -1,26 +1,33 @@
 """Time the decode kernels of this checkout on the card, by CUDA events.
 
     python -m polar_tpu_torch.sim.kernel_times [--reps 5] [--batch 8192]
-        [--only ca_scl,arikan_sc,...]
+        [--only ca_scl,arikan_sc,...] [--mixed-batch 256]
     python -m polar_tpu_torch.sim.kernel_times --split [--batch 8192]
+        [--only ca_scl|mixed_scl32]
 
 Rows (one JSON line each, with the card's name and power limit):
 `ca_scl` (L=8): K1 (`scl_decode`) on channel LLRs at 2.0 dB and K5
 (`scl_mc_counters`, the whole Monte-Carlo step); `arikan_sc` (L=1): K2
 (`scl_decode_traj`); `bch_sc` (L=1): K2 and K5, and K1 at L=8; `L32`:
 K1 and K2 at L=32 on (2,)*7 with CRC-8 and on the mixed (16,2,2); and
-`mixed_scl32` (L=32, its batch of 256): K3 as the 13 subtree-kernel
-launches of one decode (inputs captured from the K3 route) and K6 as its
-15 outer stage-kernel launches. Each time is the mean of 20 launches
+`mixed_scl32` (L=32, `--mixed-batch` codewords, the preset's 256 by
+default): K3 as the 13 subtree-kernel launches of one decode (inputs
+captured from the K3 route), K6 as its 15 outer stage-kernel launches, and
+K6 alone at each tail-table input of the 16x16 kernel at the outer shape
+(P=32, n=256). Each time is the mean of 20 launches
 (2 for the mixed_scl32 rows) after 2 warm-up launches, repeated `--reps`
 times; `min_ms` is the least. It uses only entry points that earlier
 versions of the port have, so two checkouts can be compared in one call
 on one card (run it in each, in the order A, B, B, A).
 
-`--split` instead launches K5 and K1 at ca_scl once each through the
-op-kind clock build of csrc/scl_decode.cu (`-DSCL_CLOCK`, ops/cuda_scl.py
-`clock_build`) and prints the cycles a block spends in each kind of op,
-as thread 0 of the first 128 blocks sees them.
+`--split` instead launches K5 and K1 at ca_scl once each, and K3 as the
+13 launches of one mixed_scl32 decode (the captured inputs above), through
+the op-kind clock build of csrc/scl_decode.cu (`-DSCL_CLOCK`,
+ops/cuda_scl.py `clock_build`) and prints the cycles a block spends in
+each kind of op, as thread 0 of the first 128 blocks of each launch sees
+them; the l > 2 DOWN ops have slots of their own (the last input, the
+syndrome trellis, the tail table). `--only ca_scl` or `--only
+mixed_scl32` splits one of the two.
 """
 from __future__ import annotations
 
@@ -93,10 +100,10 @@ def _decode_rows(name, spec, L, kernels, B, gen, dev):
     return out
 
 
-def _mixed_rows(dev):
-    """K3 (the 13 launches of one mixed_scl32 decode) and K6 (its 15
-    outer launches), on inputs captured from the K3 route at B=256."""
-    from polar_tpu_torch.ops import cuda_stage
+def _mixed_capture(dev, B: int):
+    """(calls, outer): the (core, lam1, pm) of the 13 K3 launches of one
+    mixed_scl32 decode of B codewords through the K3 route, and the (i,
+    paths) of its 15 outer K6 launches."""
     from polar_tpu_torch.ops.cuda_scl import SubtreeKernel
     from polar_tpu_torch.ops.mc import mc_draw
     from polar_tpu_torch.ops.philox import step_seed
@@ -105,7 +112,7 @@ def _mixed_rows(dev):
     from polar_tpu_torch.ops.scl import build_scl_decoder
 
     preset = get_preset("mixed_scl32")
-    spec, P, B = preset.spec, preset.list_size, preset.batch
+    spec, P = preset.spec, preset.list_size
     sigma = float(ebn0_to_sigma(1.25, spec.rate))
     route = build_scl_decoder(spec, P, device=dev, subtree_backend="pallas",
                               big_stage_backend="pallas")
@@ -123,39 +130,68 @@ def _mixed_rows(dev):
         SubtreeKernel.__call__ = call
     # the outer stage-1 DOWN ops with i < 15 (a DOWN_FRESH at one path)
     digits = build_schedule(spec).digits
-    n1 = spec.block_sizes[1]
     outer = []
     for op in build_program(spec, scl=True).ops:
         if op.kind in ("DOWN_FRESH", "DOWN_DYN") and op.level == 1:
             i = 0 if op.kind == "DOWN_FRESH" else int(digits[op.t0, 0])
             if i < 15:
                 outer.append((i, 1 if op.kind == "DOWN_FRESH" else P))
+    return calls, outer
+
+
+def _mixed_rows(dev, B: int):
+    """K3 (the 13 launches of one mixed_scl32 decode of B codewords) and K6
+    (its 15 outer launches), on inputs captured from the K3 route, and K6
+    alone at each table input i of the 16x16 kernel at the outer shape
+    (P=32, n=256)."""
+    from polar_tpu_torch.ops import cuda_stage
+
+    calls, outer = _mixed_capture(dev, B)
+    preset = get_preset("mixed_scl32")
+    spec, P = preset.spec, preset.list_size
+    n1 = spec.block_sizes[1]
     gen = torch.Generator(device=dev).manual_seed(22)
     views = {p: 2.0 * torch.randn((p, 16, n1, B), generator=gen, device=dev)
-             for p in {p for _, p in outer}}
+             for p in {p for _, p in outer} | {P}}
     fns = [(cuda_stage.build_down_kernel(spec.kernels[0], i, p, n1), views[p])
            for i, p in outer]
-    return [("mixed_scl32", f"scl_subtree x{len(calls)}", P,
+    rows = [("mixed_scl32", f"scl_subtree x{len(calls)}", P,
              lambda: [c.kernel(l1, pm) for c, l1, pm in calls]),
             ("mixed_scl32", f"stage_down x{len(fns)}", P,
-             lambda: [f(v) for f, v in fns])], B
+             lambda: [f(v) for f, v in fns])]
+    proc = cuda_stage.processor(spec.kernels[0])
+    for i in range(15):
+        if proc.backend[i] == "table":
+            f = cuda_stage.build_down_kernel(spec.kernels[0], i, P, n1)
+            rows.append(("mixed_scl32", f"stage_down i={i}", P,
+                         lambda f=f: f(views[P])))
+    return rows
 
 
-def split(B: int, dev, card: str) -> None:
-    """The op-kind clock of K5 and K1 at ca_scl, through the clock
+def split(B: int, dev, card: str, only=("ca_scl", "mixed_scl32")) -> None:
+    """The op-kind clock of K5 and K1 at ca_scl (B codewords) and of K3 on
+    the 13 children of one mixed_scl32 decode (B=256), through the clock
     build."""
     from polar_tpu_torch.ops import cuda_scl
 
-    preset = get_preset("ca_scl")
-    spec, L = preset.spec, preset.list_size
-    gen = torch.Generator(device=dev).manual_seed(7)
-    llr = _channel(spec, B, gen, dev)
-    dec = SclDecoder(spec, L, dev, select=True)
-    step = build_mc_step(spec, L, device=dev, counters=True)
-    sigma = float(ebn0_to_sigma(2.0, spec.rate))
-    fns = {"scl_mc_counters": lambda: step.counts((11, 12), sigma, B),
-           "scl_decode": lambda: dec.kernel(llr)}
-    for k, fn in fns.items():
+    runs = []
+    if "ca_scl" in only:
+        preset = get_preset("ca_scl")
+        spec, L = preset.spec, preset.list_size
+        gen = torch.Generator(device=dev).manual_seed(7)
+        llr = _channel(spec, B, gen, dev)
+        dec = SclDecoder(spec, L, dev, select=True)
+        step = build_mc_step(spec, L, device=dev, counters=True)
+        sigma = float(ebn0_to_sigma(2.0, spec.rate))
+        runs += [("ca_scl", "scl_mc_counters", B,
+                  lambda: step.counts((11, 12), sigma, B)),
+                 ("ca_scl", "scl_decode", B, lambda: dec.kernel(llr))]
+    if "mixed_scl32" in only:
+        Bm = get_preset("mixed_scl32").batch
+        calls, _ = _mixed_capture(dev, Bm)
+        runs.append(("mixed_scl32", f"scl_subtree x{len(calls)}", Bm,
+                     lambda: [c.kernel(l1, pm) for c, l1, pm in calls]))
+    for preset, k, batch, fn in runs:
         fn()                       # the tables, outside the clock
         with cuda_scl.clock_build() as lib:
             fn()
@@ -163,11 +199,11 @@ def split(B: int, dev, card: str) -> None:
         blocks = clk.pop("blocks")
         total = sum(clk.values())
         print(json.dumps({
-            "preset": "ca_scl", "kernel": k, "batch": B,
+            "preset": preset, "kernel": k, "batch": batch,
             "blocks_measured": blocks,
             "cycles_per_block": total / blocks,
             "split": {s: {"cycles_per_block": c / blocks, "share": c / total}
-                      for s, c in clk.items()},
+                      for s, c in clk.items() if c},
             "card": card}), flush=True)
 
 
@@ -177,8 +213,11 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--only", default=",".join(ROWS),
                     help=f"comma-separated rows of {ROWS}")
+    ap.add_argument("--mixed-batch", type=int, default=256,
+                    help="codewords of the mixed_scl32 rows (the preset's 256)")
     ap.add_argument("--split", action="store_true",
-                    help="the op-kind clock of K5 and K1 at ca_scl instead")
+                    help="the op-kind clock of K5 and K1 at ca_scl and of K3 "
+                         "at mixed_scl32 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -187,11 +226,11 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     B = args.batch
+    only = args.only.split(",")
     if args.split:
-        split(B, dev, card)
+        split(B, dev, card, only)
         return
     gen = torch.Generator(device=dev).manual_seed(7)
-    only = args.only.split(",")
     crc8 = CrcSpec(8, 0x07, 0)
     groups = {
         "ca_scl": lambda: _decode_rows("ca_scl", get_preset("ca_scl").spec, 8,
@@ -211,8 +250,8 @@ def main(argv=None) -> None:
     }
     for group in only:
         if group == "mixed_scl32":
-            rows, batch = _mixed_rows(dev)
-            iters = 2
+            batch = args.mixed_batch
+            rows, iters = _mixed_rows(dev, batch), 2
         else:
             rows, batch, iters = groups[group](), B, 20
         for name, k, L, fn in rows:

@@ -412,6 +412,90 @@ def test_mixed_scl32_children_and_default_route(cuda):
         dec.kernel(torch.zeros((4, 4096), device=cuda))
 
 
+# ---- the l > 2 tail-table marginal (csrc/big_stage.cuh) ----
+
+@pytest.mark.parametrize("paths", [1, 32])
+def test_stage_kernel_at_mixed_scl32_outer_shapes(cuda, paths):
+    """K6 == plain at mixed_scl32's outer launches, (P, n, B) = (paths,
+    256, 256), for every input i < 15 (quad tables at i = 5..10, the
+    direct fold at 11..14, the trellis below), Gaussian and integer LLRs."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops import cuda_stage
+    K = mixed_scl32().spec.kernels[0]
+    gen = torch.Generator(device=cuda).manual_seed(paths)
+    lam = 2.0 * torch.randn((paths, 16, 256, 256), generator=gen, device=cuda)
+    for x in (lam, torch.round(lam)):
+        for i in range(15):
+            fn = cuda_stage.build_down_kernel(K, i, paths, 256)
+            assert torch.equal(fn(x), fn.plain(x)), (paths, i)
+
+
+@pytest.mark.parametrize("i", [4, 5])
+def test_stage_kernel_past_32bit_thread_index(cuda, i):
+    """K6 at mixed_scl32's outer shape with B = 33,024: P*n*B*lanes is over
+    2^32 threads (32 trellis lanes at i = 4, 16 table lanes at i = 5), so
+    the launcher splits it into launches of at most 2^31 threads, starting
+    mid-row. The elements around every split and the last ones == plain."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops import cuda_stage
+    K = mixed_scl32().spec.kernels[0]
+    P, n, B = 32, 256, 129 * 256
+    E = P * n * B
+    lanes = cuda_stage.lanes_for(cuda_stage.big_kernel(K), i, E)
+    assert E * lanes > 1 << 32
+    gen = torch.Generator(device=cuda).manual_seed(i)
+    lam = torch.randn((P, 16, n, B), generator=gen, device=cuda).mul_(2.0)
+    out = cuda_stage.build_down_kernel(K, i, P, n)(lam)
+    one = cuda_stage.build_down_kernel(K, i, 1, n)
+    starts = list(range(0, E, (1 << 31) // lanes)) + [E - 1]
+    assert len(starts) > 3
+    for e0 in starts:
+        p, r = divmod(e0, n * B)
+        b0 = min(max(r % B - 128, 0), B - 256)
+        x = lam[p:p + 1, :, :, b0:b0 + 256].contiguous()
+        assert torch.equal(out[p:p + 1, :, b0:b0 + 256], one.plain(x)), (i, e0)
+    del lam, out
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_subtree_kernel_16x2x2_child_at_L32(cuda, quant):
+    """K3 == plain on the (16,2,2) children of (2,16,2,2) at L=32: integer
+    LLRs and metrics give many tied columns, maxima and candidates."""
+    from polar_tpu_torch.ops.program import build_program, subtree_items, subtree_spec
+    spec = _mixed((2, 16, 2, 2), 40, CrcSpec(8, 0x07, 0))
+    subs = [it for it in subtree_items(build_program(spec, scl=True), spec)
+            if it[0] == "sub"]
+    assert subs
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    for _, _, fr in subs:
+        core = cuda_scl.SubtreeKernel(subtree_spec(spec, fr), 32)
+        assert core.spec.factors == (16, 2, 2)
+        lam = 3.0 * torch.randn((32, core.spec.N, 512), generator=gen, device=cuda)
+        pm = 4.0 * torch.rand((32, 512), generator=gen, device=cuda)
+        if quant:
+            lam, pm = torch.round(lam), torch.round(pm)
+        _same(core(lam, pm), core.plain(lam, pm))
+
+
+def test_mixed_scl32_route_matches_plain_route(cuda):
+    """mixed_scl32 at B=256 and 1.25 dB: the K3 route (13 K3 and 15 K6
+    launches) == the plain route, every field."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops.mc import mc_draw
+    from polar_tpu_torch.ops.scl import build_plain_scl_decoder
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    spec = mixed_scl32().spec
+    sigma = float(ebn0_to_sigma(1.25, spec.rate))
+    _, llr = mc_draw(spec, (26, 6), sigma, 256, cuda)
+    route = build_scl_decoder(spec, 32, device=cuda, subtree_backend="pallas",
+                              big_stage_backend="pallas")
+    before = cuda_scl.LAUNCHES["scl_subtree"]
+    out = route(llr)
+    assert cuda_scl.LAUNCHES["scl_subtree"] == before + 13
+    _equal(out, build_plain_scl_decoder(spec, 32)(llr))
+
+
 # ---- the Arikan capacity-8 body (K1, K2, K4, K5 of Arikan specs, P <= 8) ----
 
 def _all_four(spec, L, cuda, llr, noise, sigma):

@@ -150,9 +150,18 @@ def test_stage_kernel_tables_and_checks():
         else:
             assert bk.states[i] == 0
             assert 1 <= cuda_stage.lanes_for(bk, i, 8192) <= 32
-            assert cuda_stage.lanes_for(bk, i, 1 << 24) == 1
+            # the row l-1 is all ones: half the columns are walked; a walk
+            # of >= QUAD_MIN_COLS columns takes a 16-lane group (quad tables)
+            walk = bk.walk[i]
+            assert walk == 1 << (14 - i)
+            quads = walk >= cuda_stage.QUAD_MIN_COLS
+            assert bool((bk.quads >> i) & 1) == quads
+            many = cuda_stage.lanes_for(bk, i, 1 << 24)
+            assert many == (16 if quads else 1)
+            assert cuda_stage.lanes_for(bk, i, 8192) <= walk
     for k in range(16):
         assert bk.kcol[k] == sum(int(K16[j, k]) << j for j in range(16))
+        assert bk.krow[k] == sum(int(K16[k, j]) << j for j in range(16))
     with pytest.raises(ValueError):
         cuda_stage.build_down_kernel(K16, 15, P, N_POS)
     fn = cuda_stage.build_down_kernel(K16, 3, P, N_POS)

@@ -233,3 +233,38 @@ def test_mixed_scl32_top_stages_match_jax():
                                   np.asarray(getattr(ref, f))), f
         np.testing.assert_allclose(out.pm.numpy(), np.asarray(ref.pm),
                                    rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.slow
+def test_mixed_scl32_frames_match_jax_at_1p25db():
+    """mixed_scl32 (N=4096, K=2048 + CRC-16, L=32) at 1.25 dB: 256 of the
+    port's Monte-Carlo frames (`mc_draw`, 16 steps of 16) through the
+    port's plain subtree route and through the JAX XLA decoder of the
+    JAX package's own preset, frame by frame (u, crc_ok); pm to the
+    suite's tolerance. JAX compiles the unrolled L=32 program once (~6 min,
+    ~11 GB), then ~0.6 s a frame; the port's route ~2 s a frame."""
+    from polar_tpu.models.presets import mixed_scl32 as j_mixed_scl32
+    from polar_tpu_torch.ops.mc import mc_draw
+    from polar_tpu_torch.ops.philox import step_seed
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+
+    jpreset, preset = j_mixed_scl32(), mixed_scl32()
+    spec = preset.spec
+    assert spec == spec_from_reference(jpreset.spec)
+    sigma = float(ebn0_to_sigma(1.25, spec.rate))
+    ref_dec = jax.jit(j_build_scl_decoder(jpreset.spec, 32))
+    route = t_scl.build_scl_decoder(spec, 32, device="cpu", subtree_backend="pallas")
+    errors = [0, 0]
+    for k in range(16):
+        u_true, llr = mc_draw(spec, step_seed(2026, 0, k, 0), sigma, 16, "cpu")
+        ref = ref_dec(jnp.asarray(llr.numpy()))
+        out = route(llr)
+        assert np.array_equal(out.u.numpy(), np.asarray(ref.u)), k
+        assert np.array_equal(out.crc_ok.numpy(), np.asarray(ref.crc_ok)), k
+        np.testing.assert_allclose(out.pm.numpy(), np.asarray(ref.pm),
+                                   rtol=1e-6, atol=1e-5)
+        errors[0] += int((out.u != u_true).any(dim=1).sum())
+        errors[1] += int((np.asarray(ref.u) != u_true.numpy()).any(axis=1).sum())
+    assert errors[0] == errors[1]
+    print(f"mixed_scl32 at 1.25 dB: 256 frames, {errors[0]} frame errors on "
+          f"both sides")
