@@ -105,7 +105,24 @@ Phases (any failure exits non-zero):
 23. the op-kind split of K5 and K1 at ca_scl, B=8192, and of K3 on the
    13 children of one mixed_scl32 decode (B=256), through the op-kind
    clock build of scl_decode.cu (-DSCL_CLOCK, sim/kernel_times.py
-   `split`): cycles a block by op kind, the l > 2 DOWN ops by method.
+   `split`): cycles a block by op kind, the l > 2 DOWN ops by method;
+24. the sweep's fetch and its trace: the fetch of call n returns while
+   call n+1 (~50 ms of torch.cuda._sleep) still runs; `sweep_cli
+   --profile` over a short steady window of the ca_scl fused sweep (K5),
+   the bch_sc fused sweep and the mixed_scl32 K3 route (B=256), each read
+   by sim/kernel_times.py `trace_summary`: the device's busy and idle
+   share, the five kernels that take the most time, the three longest idle
+   gaps with the host ops that overlap them; phase 10's all-frames rate
+   of the fused sweep beside K5's own rate (phase 11);
+25. the multi-card sweep (`sweep` preset, `fused`, 2 points, B=8192 a
+   rank): n = min(cards, 4) ranks over NCCL, one card each, launched by
+   torchrun (2 ranks on the one card over gloo where there is one card):
+   4 steps a point, each rank's counts recomputed here with
+   step_seed(..., rank=r) and summed; resumed to 2^20 frames a point
+   (the n-card rate); a resume that adds no frame; the same sweep on one
+   card in one process (the one-card rate); entry.dryrun_multichip(n).
+   `--multi` runs phases 1, 2 and 25 alone (for a call with several
+   cards).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -117,6 +134,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -169,6 +187,12 @@ MIXED_BATCH = 256           # the FER point's batch (the preset's)
 MIXED_BATCH_LARGE = 2048    # the second batch timed
 MIXED_SAME_KEYS = 4         # batches decoded by both mixed_scl32 routes
 SMALL_BATCH = 1024          # kernel == plain on small specs (phases 17, 18)
+SLEEP_CYCLES = 100_000_000  # ~50 ms of torch.cuda._sleep (phase 24)
+TRACE_FRAMES = 1 << 18      # the traced steady window of each fused sweep
+TRACE_BATCHES = 4           # batches of the traced mixed_scl32 window
+MULTI_SNR = ("1.0", "2.0")  # the points of the multi-card sweep
+MULTI_STEPS = 4             # steps a point recomputed rank by rank
+MULTI_TIMEOUT = 600         # seconds for each multi-rank run
 
 
 def all_launches() -> dict:
@@ -961,10 +985,175 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     return bch_rows, bch_launches
 
 
+def fetch_and_trace(dev, card, fused_all_rate: float, k5_rate: float) -> None:
+    """Phase 24: the fetch waits for its own call; the device's busy and
+    idle share of three traced sweeps."""
+    from polar_tpu_torch.sim import sweep_cli
+    from polar_tpu_torch.sim.harness import CounterCopies
+    from polar_tpu_torch.sim.kernel_times import trace_summary
+
+    copies = CounterCopies(2, dev)
+    first = torch.tensor([3, 4], dtype=torch.int64, device=dev)
+    second = torch.tensor([5, 6], dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call_n = copies.start(1, first)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    call_n1 = copies.start(1, second + 0)
+    got = call_n.counts()
+    t_n = time.perf_counter() - t0
+    running = not call_n1.event.query()
+    got1 = call_n1.counts()
+    t_n1 = time.perf_counter() - t0
+    print(f"fetch: call n's counters {got} after {t_n * 1e3} ms, call n+1 "
+          f"still running: {running}; call n+1's {got1} after {t_n1 * 1e3} ms "
+          f"[{card}]")
+    if got != (3, 4) or got1 != (5, 6) or not running:
+        raise SystemExit("the fetch of call n waited for call n+1")
+
+    paths = (
+        ("ca_scl_fused", "ca_scl fused sweep (K5) at 2.0 dB",
+         ["--preset", "sweep", "--backend", "fused", "--snr", "2.0",
+          "--frames", str(TRACE_FRAMES), "--per-device-batch", str(BATCH)]),
+        ("bch_sc_fused", "bch_sc fused sweep (K5) at 2.0 dB",
+         ["--preset", "bch_sc", "--backend", "fused", "--snr", "2.0",
+          "--frames", str(TRACE_FRAMES), "--per-device-batch", str(BATCH)]),
+        ("mixed_scl32_k3", f"mixed_scl32 K3 route at {MIXED_EBN0} dB",
+         ["--preset", "mixed_scl32", "--backend", "torch", "--big-stage",
+          "pallas", "--subtree", "pallas", "--snr", str(MIXED_EBN0),
+          "--frames", str(TRACE_BATCHES * MIXED_BATCH),
+          "--per-device-batch", str(MIXED_BATCH)]))
+    for slug, label, args in paths:
+        out = ROOT / "build" / "traces" / slug
+        shutil.rmtree(out, ignore_errors=True)
+        sweep_cli.main(args + ["--seed", str(SWEEP_SEED), "--profile", str(out)])
+        s = trace_summary(out / "trace_rank0.json")
+        print(f"trace: {label}: window {s['window_us']} us, device busy "
+              f"{s['busy_us']} us, busy share {s['busy_share']}, idle share "
+              f"{s['idle_share']} [{card}]")
+        for k in s["kernels"]:
+            print(f"trace: {label}: kernel {k['name'][:80]} launches="
+                  f"{k['launches']} us={k['us']}")
+        for g in s["gaps"]:
+            print(f"trace: {label}: idle gap {g['us']} us at {g['at_us']} us, "
+                  f"host ops overlapping (us): {g['host_ops']}")
+    print(f"sweep ca_scl fused, all frames over all wall time (phase 10) "
+          f"{fused_all_rate} cw_per_s; K5 alone (phase 11) {k5_rate} cw_per_s; "
+          f"ratio {fused_all_rate / k5_rate} [{card}]")
+
+
+def _records(stdout: str) -> list[dict]:
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith('{"preset"')]
+
+
+def _seconds(stdout: str) -> float:
+    """The sweep's wall seconds, as sweep_cli prints them."""
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith('{"seconds"')][-1]["seconds"]
+
+
+def multi_card(dev, card) -> None:
+    """Phase 25: the `sweep` preset's fused sweep over n ranks, against
+    each rank's counts recomputed here, and against one card."""
+    from polar_tpu_torch import entry
+    from polar_tpu_torch.models.presets import get_preset
+    from polar_tpu_torch.ops import cuda_build
+    from polar_tpu_torch.parallel.mesh import launch
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    from polar_tpu_torch.sim.harness import SweepState, make_mc_step
+
+    cards = min(torch.cuda.device_count(), 4)
+    if cards >= 2:
+        n, world_args = cards, []
+        world = f"{n} ranks over NCCL, one card each"
+    else:
+        n, world_args = 2, ["--dist-backend", "gloo", "--device", "cuda:0"]
+        world = ("2 ranks on the one card over gloo (NCCL refuses two ranks "
+                 "on one card)")
+    built = [cuda_build.library_path(src).exists() for src in cuda_build.SOURCES]
+    print(f"multi-card: world {world}; kernels already built for the ranks "
+          f"(phase 2): {dict(zip(cuda_build.SOURCES, built))}")
+    if not all(built):
+        raise SystemExit("the ranks would build the kernels again")
+    work = ROOT / "build" / "multi"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    state = work / "state.json"
+    sweep_args = ["-m", "polar_tpu_torch.sim.sweep_cli", "--preset", "sweep",
+                  "--backend", "fused", "--snr", *MULTI_SNR,
+                  "--per-device-batch", str(BATCH), "--seed", str(SWEEP_SEED)]
+    ranks = sweep_args + world_args + ["--state", str(state)]
+    gb = BATCH * n
+
+    # the first steps of each point, each rank's counts recomputed here
+    out = launch(n, ranks + ["--frames", str(MULTI_STEPS * gb),
+                             "--jsonl", str(work / "out.jsonl")], MULTI_TIMEOUT)
+    recs = _records(out)
+    if ([(r["n_devices"], r["global_batch"], r["frames"]) for r in recs]
+            != [(n, gb, MULTI_STEPS * gb)] * len(MULTI_SNR)):
+        raise SystemExit(f"multi-card records: {recs}")
+    if _records((work / "out.jsonl").read_text()) != recs:
+        raise SystemExit("the multi-card JSONL is not rank 0's records")
+    spec = get_preset("sweep").spec
+    step = make_mc_step(spec, get_preset("sweep").list_size, backend="fused",
+                        device=dev)
+    for si, (snr, rec) in enumerate(zip(MULTI_SNR, recs)):
+        sigma = float(ebn0_to_sigma(float(snr), spec.rate))
+        per_rank = []
+        for r in range(n):
+            outs = [step(SWEEP_SEED, si, k, sigma, BATCH, rank=r)
+                    for k in range(MULTI_STEPS)]
+            per_rank.append([sum(int(o[f]) for o in outs)
+                             for f in ("frame_errors", "bit_errors")])
+        total = [sum(c[0] for c in per_rank), sum(c[1] for c in per_rank)]
+        print(f"multi-card {snr} dB, the first {MULTI_STEPS} steps: each rank's "
+              f"(frame_errors, bit_errors) recomputed on one card {per_rank}, "
+              f"sum {total}; the sweep counted "
+              f"{[rec['frame_errors'], rec['bit_errors']]}")
+        if total != [rec["frame_errors"], rec["bit_errors"]]:
+            raise SystemExit("the multi-card sweep != the ranks' sum")
+
+    # resumed to SWEEP_FRAMES a point: the n-card rate
+    t = time.perf_counter()
+    out = launch(n, ranks + ["--frames", str(SWEEP_FRAMES)], MULTI_TIMEOUT)
+    held = time.perf_counter() - t
+    recs = _records(out)
+    want = -(-SWEEP_FRAMES // gb) * gb
+    if [r["frames"] for r in recs] != [want] * len(MULTI_SNR):
+        raise SystemExit(f"multi-card frames {[r['frames'] for r in recs]}, "
+                         f"not {want}")
+    added = sum(r["frames"] for r in recs) - len(MULTI_SNR) * MULTI_STEPS * gb
+    rate_n = added / _seconds(out)
+    saved = SweepState.load(state)
+    launch(n, ranks + ["--frames", str(SWEEP_FRAMES)], MULTI_TIMEOUT)
+    if SweepState.load(state) != saved:
+        raise SystemExit("resuming the finished multi-card sweep changed it")
+    print(f"multi-card sweep resumed: {SweepState.load(state).frames} frames, "
+          f"rng_step {saved.rng_step}; a further resume added no frame")
+
+    # the same sweep on one card, one process
+    one = subprocess.run([sys.executable, *sweep_args, "--frames",
+                          str(SWEEP_FRAMES)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=MULTI_TIMEOUT)
+    if one.returncode:
+        raise SystemExit(f"one-card sweep failed:\n{one.stderr[-4000:]}")
+    recs1 = _records(one.stdout)
+    rate_1 = sum(r["frames"] for r in recs1) / _seconds(one.stdout)
+    print(f"multi-card rates ({world}): all frames over the sweep's wall time "
+          f"{rate_n} cw_per_s ({added} frames; {held} s with the ranks' start); "
+          f"one card {rate_1} cw_per_s; ratio {rate_n / rate_1}; steady per "
+          f"point {[r['codewords_per_s'] for r in recs]} against one card "
+          f"{[r['codewords_per_s'] for r in recs1]} [{card}]")
+    entry.dryrun_multichip(cards)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=2,
                     help="main-path seeds, each 32 batches of 8192 frames")
+    ap.add_argument("--multi", action="store_true",
+                    help="phases 1, 2 and 25 alone: the multi-card sweep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1018,6 +1207,13 @@ def main() -> int:
                       f"{ca_kernels.smem_bytes(k, dev)}"
                       for k in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
                                 "scl_mc_counters")))
+
+    if args.multi:
+        # ---- 25. the multi-card sweep ----
+        multi_card(dev, card)
+        print(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
+        print("chip_smoke --multi: phases 1, 2 and 25 passed")
+        return 0
 
     preset = ca_scl()
     spec, L = preset.spec, preset.list_size
@@ -1422,6 +1618,11 @@ def main() -> int:
     print(f"sweep steady state (per-point rate, first fetch left out): fused "
           f"mean={sum(fused_rates) / len(fused_rates)} per point={fused_rates}; "
           f"torch={rec_t['codewords_per_s']} (ca_scl 2.0 dB) [{card}]")
+    # ---- 24. the fetch and the trace ----
+    fetch_and_trace(dev, card, fused_frames / wall_f,
+                    BATCH / rows["scl_mc_counters"]["ms"] * 1e3)
+    # ---- 25. the multi-card sweep ----
+    multi_card(dev, card)
     print("library: no single PyTorch call computes an SCL decode, the "
           "Monte-Carlo step, a depth-1 child's list decode or a "
           "trellis/tail-table marginal (library_ms null)")

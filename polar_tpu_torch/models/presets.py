@@ -51,7 +51,7 @@ def _load_mask(name: str, factors, n_unfrozen: int,
     else:
         raise NotImplementedError(
             "Monte-Carlo construction is not ported yet (ROADMAP Queue 1 "
-            "item 7, construct_mc); commit the sequence artifact instead")
+            "item 5, construct_mc); commit the sequence artifact instead")
     return tuple(int(v) for v in mask)
 
 

@@ -72,14 +72,19 @@ def random_words(seed: tuple[int, int], batch: int, n_words: int,
     return torch.stack(out, dim=2).reshape(batch, n_words)
 
 
-def step_seed(seed: int, snr_index: int, step: int, sub: int) -> tuple[int, int]:
+def step_seed(seed: int, snr_index: int, step: int, sub: int,
+              rank: int = 0) -> tuple[int, int]:
     """Key (seed0, seed1) of one Monte-Carlo batch: the first two words of
-    Philox4x32-10 with counter (step, sub, snr_index, 0) and key
+    Philox4x32-10 with counter (step, sub, snr_index, rank) and key
     (seed mod 2^32, seed >> 32). A function of the position in the sweep
-    alone, so a resumed sweep draws the same frames."""
+    and of the rank of a multi-device sweep alone, so a resumed sweep
+    draws the same frames; rank 0 draws the frames of a single-device
+    sweep."""
     seed = int(seed)
     if seed < 0:
         raise ValueError(f"seed {seed} must be non-negative")
-    w = philox4x32_10_int((step, sub, snr_index, 0),
+    if not 0 <= rank <= MASK32:
+        raise ValueError(f"rank {rank} is not a 32-bit counter word")
+    w = philox4x32_10_int((step, sub, snr_index, rank),
                           (seed & MASK32, (seed >> 32) & MASK32))
     return w[0], w[1]

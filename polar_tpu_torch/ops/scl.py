@@ -46,7 +46,7 @@ KERNEL_SIZES = (2, 4, 8, 16)
 BIG_STAGE_BACKENDS = ("xla", "pallas")
 SUBTREE_BACKENDS = ("none", "pallas")
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 7: decoder knobs)"
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 5: decoder knobs)"
 
 
 class DecodeResult(NamedTuple):

@@ -1,7 +1,9 @@
-"""Monte-Carlo BER/FER harness: Eb/N0 sweep, resume (PyTorch).
+"""Monte-Carlo BER/FER harness: Eb/N0 sweep, sharded batches, resume
+(PyTorch).
 
-Counterpart of polar_tpu/sim/harness.py on one device (the card unless the
-caller asks for the CPU):
+Counterpart of polar_tpu/sim/harness.py, on one device (the card unless
+the caller asks for the CPU) or on a mesh of cards, one process a card
+(parallel/mesh.py):
 
 - A step draws a batch of frames, decodes it and counts errors on the
   device: random data bits -> CRC -> encode -> BPSK-AWGN -> LLR -> decode.
@@ -11,11 +13,14 @@ caller asks for the CPU):
   mode). Both draw the same frames from the same Philox keys, so on one
   seed they count the same errors: the knob trades speed only.
 - Batch `step` of SNR point `i` takes the key `step_seed(seed, i, step,
-  sub)` (ops/philox.py) for its sub-step `sub`, so a resumed sweep draws
-  the frames it would have drawn.
-- The SNR loop stays on the host. Sweep state (per-SNR frame/error
-  counters and the step count) persists to JSON after every fetch; records
-  stream to stdout and JSONL, with the JAX package's keys.
+  sub, rank)` (ops/philox.py) for its sub-step `sub` on mesh rank `rank`,
+  so a resumed sweep draws the frames it would have drawn.
+- The SNR loop stays on the host. Each call's counters (summed over the
+  mesh) are copied to the host as they are dispatched, and a fetch waits
+  for that copy alone, so `pipeline_depth` calls overlap. Sweep state
+  (per-SNR frame/error counters and the step count) persists to JSON
+  after every fetch; records stream to stdout and JSONL, with the JAX
+  package's keys.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import pathlib
 import time
 
 import torch
+import torch.distributed as dist
+from torch.profiler import record_function
 
 from polar_tpu_torch.models.polar import CodeSpec
 from polar_tpu_torch.models.presets import Preset
@@ -33,6 +40,7 @@ from polar_tpu_torch.ops.mc import build_mc_step, count_errors, mc_draw
 from polar_tpu_torch.ops.philox import step_seed
 from polar_tpu_torch.ops.scl import (BIG_STAGE_BACKENDS, SUBTREE_BACKENDS,
                                      build_scl_decoder)
+from polar_tpu_torch.parallel.mesh import make_batch_mesh, sharded_mc_step
 from polar_tpu_torch.sim.channel import ebn0_to_sigma
 from polar_tpu_torch.utils.device import resolve_device
 
@@ -42,14 +50,17 @@ BACKENDS = ("torch", "fused")
 def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
                  backend: str = "torch", device="cuda",
                  big_stage_backend: str = "xla", subtree_backend: str = "none"):
-    """Monte-Carlo step: step(seed, snr_index, rng_step, sigma, batch) ->
-    {"frames": int, "frame_errors": tensor, "bit_errors": tensor}, the
-    counters as device tensors (fetching them is the caller's sync).
+    """Monte-Carlo step: step(seed, snr_index, rng_step, sigma, batch,
+    rank=0) -> {"frames": int, "frame_errors": tensor, "bit_errors":
+    tensor}, the counters as device tensors (fetching them is the caller's
+    sync).
 
     steps_per_call > 1 chains that many batches per call, sub-step `sub`
-    keyed by step_seed(seed, snr_index, rng_step, sub); the counters are
-    summed on the device. backend: "torch" (mc_draw + build_scl_decoder)
-    or "fused" (the one-kernel step, build_mc_step counters mode).
+    keyed by step_seed(seed, snr_index, rng_step, sub, rank); the counters
+    are summed on the device. `rank`: the mesh rank whose frames are drawn
+    (parallel/mesh.py `sharded_mc_step` passes it). backend: "torch"
+    (mc_draw + build_scl_decoder) or "fused" (the one-kernel step,
+    build_mc_step counters mode).
     big_stage_backend, subtree_backend: passed to build_scl_decoder by the
     "torch" backend ("pallas": the hybrid decoder with the CUDA stage
     kernel; the subtree route with one CUDA subtree-kernel launch a
@@ -79,10 +90,11 @@ def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
 
     def step(seed: int, snr_index: int, rng_step: int, sigma: float,
-             batch: int) -> dict:
+             batch: int, rank: int = 0) -> dict:
         fe = be = 0
         for sub in range(steps_per_call):
-            f, b = one(step_seed(seed, snr_index, rng_step, sub), sigma, batch)
+            f, b = one(step_seed(seed, snr_index, rng_step, sub, rank), sigma,
+                       batch)
             fe, be = fe + f, be + b
         return {"frames": batch * steps_per_call, "frame_errors": fe,
                 "bit_errors": be}
@@ -129,6 +141,47 @@ class SweepState:
         return cls(**json.loads(path.read_text()))
 
 
+@dataclasses.dataclass
+class InFlight:
+    """One dispatched call: its frames and the host copy of its counters,
+    ready once `event` (None on the CPU) has passed."""
+    frames: int
+    host: torch.Tensor
+    event: "torch.cuda.Event | None"
+
+    def counts(self) -> tuple[int, int]:
+        """(frame errors, bit errors), waiting for this call's copy alone."""
+        if self.event is not None:
+            self.event.synchronize()
+        fe, be = self.host.tolist()
+        return fe, be
+
+
+class CounterCopies:
+    """Host buffers for the counters of the calls in flight: a ring of
+    `depth + 1`, so that no buffer is written again while its copy is in
+    flight. On the card each copy is a non-blocking copy into pinned memory
+    followed by an event on the stream; on the CPU the copy is done at
+    once."""
+
+    def __init__(self, depth: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.ring = [torch.zeros(2, dtype=torch.int64, pin_memory=self.cuda)
+                     for _ in range(depth + 1)]
+        self.next = 0
+
+    def start(self, frames: int, counts: torch.Tensor) -> InFlight:
+        """Start the copy of one call's counts (int64 [2])."""
+        host = self.ring[self.next]
+        self.next = (self.next + 1) % len(self.ring)
+        host.copy_(counts, non_blocking=self.cuda)
+        event = None
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(counts.device))
+        return InFlight(frames, host, event)
+
+
 def run_sweep(preset: Preset, frames: int | None = None,
               per_device_batch: int | None = None, seed: int = 0,
               device="cuda", state_path: str | None = None,
@@ -144,35 +197,52 @@ def run_sweep(preset: Preset, frames: int | None = None,
     frame errors AND at least frames/10 frames.
 
     pipeline_depth: calls kept in flight before the host fetches counters
-    (launches are asynchronous; each fetch is one host sync). Counters are
-    fetched, and the state persisted, strictly in dispatch order, so
-    resume semantics do not depend on it; 1 fetches after every call.
+    (launches are asynchronous; a fetch waits for its own call's counters
+    only). Counters are fetched, and the state persisted, strictly in
+    dispatch order, so resume semantics do not depend on it; 1 fetches
+    after every call.
 
-    mesh: multi-device sweeps are not ported yet (ROADMAP Queue 1 item 9).
+    mesh: a parallel/mesh.py BatchMesh (default: `make_batch_mesh(device=
+    device)`, every rank of the process group where one is up, else this
+    process alone on `device`). Each rank draws `per_device_batch` frames
+    a batch (default: the preset's batch over the mesh size) on the mesh's
+    device, keyed by its rank, and fetches the counters summed over the
+    mesh, so every rank takes the same decisions. Rank 0 alone reads the
+    state file (and sends it to the others), saves it, writes JSONL and
+    prints.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device run_sweep is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
-    dev = resolve_device(device)
+    mesh = mesh or make_batch_mesh(device=device)
+    n_dev = mesh.size
     frames = frames or preset.frames
-    batch = per_device_batch or preset.batch
-    step = make_mc_step(preset.spec, preset.list_size,
-                        steps_per_call=steps_per_call, backend=backend,
-                        device=dev, big_stage_backend=big_stage_backend,
-                        subtree_backend=subtree_backend)
+    pdb = per_device_batch or max(1, preset.batch // n_dev)
+    global_batch = pdb * n_dev
+    raw_step = make_mc_step(preset.spec, preset.list_size,
+                            steps_per_call=steps_per_call, backend=backend,
+                            device=mesh.device,
+                            big_stage_backend=big_stage_backend,
+                            subtree_backend=subtree_backend)
+    step = sharded_mc_step(raw_step, mesh)
+    lead = mesh.rank == 0
 
     state = None
     spath = pathlib.Path(state_path) if state_path else None
-    if spath and spath.exists():
+    if lead and spath and spath.exists():
         state = SweepState.load(spath)
         if state.preset != preset.name or state.snr_db != [float(s) for s in
                                                           preset.ebn0_grid]:
             state = None
+    if mesh.group is not None:
+        box = [state]
+        dist.broadcast_object_list(box, src=0, group=mesh.group,
+                                   device=mesh.device)
+        state = box[0]
     if state is None:
         state = SweepState.fresh(preset.name, preset.ebn0_grid, seed)
 
     records = []
-    jfile = open(jsonl_path, "a") if jsonl_path else None
+    jfile = open(jsonl_path, "a") if jsonl_path and lead else None
+    depth = max(1, pipeline_depth)
+    copies = CounterCopies(depth, mesh.device)
     for si, snr in enumerate(state.snr_db):
         sigma = float(ebn0_to_sigma(snr, preset.spec.rate))
         t0 = time.time()
@@ -182,25 +252,24 @@ def run_sweep(preset: Preset, frames: int | None = None,
         # launch) and excludes its frames
         t_rate = None
         f_rate = 0
-        frames_per_call = batch * steps_per_call
-        pending: list = []     # dispatched-but-unfetched outs, FIFO
+        frames_per_call = global_batch * steps_per_call
+        pending: list[InFlight] = []     # dispatched, not fetched: FIFO
 
         def fetch_one():
             nonlocal t_frames, t_rate, f_rate
-            out = pending.pop(0)
-            fe, be = (int(v) for v in torch.stack([
-                torch.as_tensor(out["frame_errors"]),
-                torch.as_tensor(out["bit_errors"])]).cpu())
-            state.rng_step[si] += 1
-            state.frames[si] += out["frames"]
-            state.frame_errors[si] += fe
-            state.bit_errors[si] += be
-            t_frames += out["frames"]
-            if t_rate is None:
-                t_rate = time.time()
-                f_rate = t_frames
-            if spath:
-                state.save(spath)
+            with record_function("run_sweep.fetch"):
+                call = pending.pop(0)
+                fe, be = call.counts()
+                state.rng_step[si] += 1
+                state.frames[si] += call.frames
+                state.frame_errors[si] += fe
+                state.bit_errors[si] += be
+                t_frames += call.frames
+                if t_rate is None:
+                    t_rate = time.time()
+                    f_rate = t_frames
+                if spath and lead:
+                    state.save(spath)
 
         while True:
             done = state.frames[si] + len(pending) * frames_per_call
@@ -209,10 +278,11 @@ def run_sweep(preset: Preset, frames: int | None = None,
                      state.frames[si] >= frames // 10)
             if done >= frames or early:
                 break
-            pending.append(step(state.seed, si,
-                                state.rng_step[si] + len(pending), sigma,
-                                batch))
-            if len(pending) >= max(1, pipeline_depth):
+            with record_function("run_sweep.dispatch"):
+                out = step(state.seed, si, state.rng_step[si] + len(pending),
+                           sigma, pdb)
+                pending.append(copies.start(out["frames"], out["counts"]))
+            if len(pending) >= depth:
                 fetch_one()
         while pending:
             fetch_one()
@@ -229,10 +299,10 @@ def run_sweep(preset: Preset, frames: int | None = None,
             "fer": fe / max(n, 1), "ber": be / max(n * preset.spec.K, 1),
             "fer_ci95": [lo, hi],
             "codewords_per_s": rate,
-            "n_devices": 1, "global_batch": batch,
+            "n_devices": n_dev, "global_batch": global_batch,
         }
         records.append(rec)
-        if progress:
+        if progress and lead:
             print(json.dumps(rec), flush=True)
         if jfile:
             jfile.write(json.dumps(rec) + "\n")

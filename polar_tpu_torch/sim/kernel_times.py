@@ -28,11 +28,17 @@ each kind of op, as thread 0 of the first 128 blocks of each launch sees
 them; the l > 2 DOWN ops have slots of their own (the last input, the
 syndrome trellis, the tail table). `--only ca_scl` or `--only
 mixed_scl32` splits one of the two.
+
+`trace_summary` reads a torch.profiler Chrome trace (sim/sweep_cli.py
+`--profile`): the device's busy and idle share of the traced window, the
+kernels that take the most time, and the longest idle gaps with the host
+ops that overlap them.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
 
 import numpy as np
@@ -205,6 +211,58 @@ def split(B: int, dev, card: str, only=("ca_scl", "mixed_scl32")) -> None:
             "split": {s: {"cycles_per_block": c / blocks, "share": c / total}
                       for s, c in clk.items() if c},
             "card": card}), flush=True)
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation",
+             "python_function")
+
+
+def trace_summary(path, top: int = 5, gaps: int = 3) -> dict:
+    """The device's activity in a torch.profiler Chrome trace: the window
+    from its first device activity's start to its last one's end; busy, the
+    union of its kernel, memcpy and memset intervals over every stream, and
+    the busy and idle shares of the window; the `top` kernels by total time
+    with their launches; and the `gaps` longest stretches of the window
+    without device activity, each with the host ops that overlap it most
+    (name: microseconds of overlap). Times in microseconds."""
+    events = [e for e in json.loads(pathlib.Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e)
+                 for e in events if e.get("cat") in DEVICE_CATS)
+    if not dev:
+        raise ValueError(f"{path}: the trace holds no device activity")
+    busy = []                       # merged [start, end] intervals
+    for s, t, _ in dev:
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], t)
+        else:
+            busy.append([s, t])
+    window = busy[-1][1] - busy[0][0]
+    busy_us = sum(t - s for s, t in busy)
+    kernels: dict = {}
+    for s, t, e in dev:
+        if e["cat"] == "kernel":
+            k = kernels.setdefault(e["name"], [0, 0.0])
+            k[0] += 1
+            k[1] += t - s
+    host = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+            for e in events if e.get("cat") in HOST_CATS]
+    holes = sorted(((b[0] - a[1], a[1], b[0]) for a, b in zip(busy, busy[1:])),
+                   reverse=True)[:gaps]
+    out_gaps = []
+    for us, s, t in holes:
+        over: dict = {}
+        for hs, ht, name in host:
+            if min(ht, t) > max(hs, s):
+                over[name] = over.get(name, 0.0) + min(ht, t) - max(hs, s)
+        out_gaps.append({"us": us, "at_us": s - busy[0][0], "host_ops": dict(
+            sorted(over.items(), key=lambda kv: -kv[1])[:5])})
+    return {"window_us": window, "busy_us": busy_us,
+            "busy_share": busy_us / window, "idle_share": 1 - busy_us / window,
+            "kernels": [{"name": n, "launches": c, "us": u} for n, (c, u) in
+                        sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]],
+            "gaps": out_gaps}
 
 
 def main(argv=None) -> None:

@@ -1,10 +1,29 @@
 """CLI entry point for Monte-Carlo FER sweeps (PyTorch).
 
-Counterpart of polar_tpu/sim/sweep_cli.py, on one device: the card unless
-`--device cpu` is given (the plain PyTorch version). Usage:
+Counterpart of polar_tpu/sim/sweep_cli.py: on the card unless `--device
+cpu` is given (the plain PyTorch version). Usage:
 
     python -m polar_tpu_torch.sim.sweep_cli --preset sweep --backend fused \
         --frames 1000000 --state sweep_state.json --jsonl results.jsonl
+
+Several cards: one process a card, launched by torchrun; each rank draws
+its own batches and the counters meet in one all-reduce over NCCL
+(parallel/mesh.py). `--dist-backend gloo --device cuda:0` puts every rank
+on one card (NCCL refuses two ranks on one card); `--device cpu` runs the
+ranks on the CPU over gloo:
+
+    torchrun --nproc-per-node 4 -m polar_tpu_torch.sim.sweep_cli \
+        --preset sweep --backend fused
+
+`--profile DIR` runs a warm-up sweep of one call (it builds and loads the
+kernels), then traces the steady-state sweep with torch.profiler (CPU and,
+on the card, CUDA activity) into DIR/trace_rank<r>.json, a Chrome trace
+for each rank (sim/kernel_times.py `trace_summary` reads the device's
+busy and idle share from it); the records are those of the same sweep
+without it:
+
+    python -m polar_tpu_torch.sim.sweep_cli --preset sweep --backend fused \
+        --frames 131072 --profile trace/
 
 `--big-stage pallas` (the JAX package's name, kept) decodes the `torch`
 backend's frames with the hybrid decoder: the op program in PyTorch on
@@ -22,16 +41,22 @@ child:
     python -m polar_tpu_torch.sim.sweep_cli --preset mixed_scl32 \
         --backend torch --big-stage pallas [--subtree pallas]
 
-Not ported yet: `--profile` (ROADMAP Queue 1 item 10); it raises
-NotImplementedError.
+The last line is {"summary": [...]}, the line before it {"seconds": wall
+seconds of the (traced) sweep}; rank 0 prints both.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import pathlib
+import time
+
+import torch
+import torch.distributed as dist
 
 from polar_tpu_torch.models.presets import get_preset
+from polar_tpu_torch.parallel.mesh import init_multihost
 from polar_tpu_torch.sim.harness import BACKENDS, run_sweep
 
 
@@ -72,31 +97,57 @@ def main(argv=None):
                    help="calls in flight before fetching counters "
                         "(1 = fetch every call)")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu (the plain PyTorch version)")
+                   help="cuda (default: the card LOCAL_RANK names under "
+                        "torchrun), cuda:<i>, or cpu (the plain PyTorch "
+                        "version)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="under torchrun: the all-reduce's backend (default "
+                        "nccl on the card, gloo on the CPU)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="not ported yet (a torch.profiler trace)")
+                   help="trace the steady-state sweep with torch.profiler "
+                        "into DIR/trace_rank<r>.json (Chrome trace)")
     args = p.parse_args(argv)
-    if args.profile:
-        raise NotImplementedError("--profile is not ported yet (ROADMAP "
-                                  "Queue 1 item 10: torch.profiler)")
+    started = (not dist.is_initialized()
+               and init_multihost(args.device, args.dist_backend))
 
     preset = get_preset(args.preset)
     if args.snr:
         preset = dataclasses.replace(preset, ebn0_grid=tuple(args.snr))
     if args.list_size:
         preset = dataclasses.replace(preset, list_size=args.list_size)
-    recs = run_sweep(preset, frames=args.frames,
-                     per_device_batch=args.per_device_batch, seed=args.seed,
-                     device=args.device, state_path=args.state,
-                     jsonl_path=args.jsonl,
-                     min_frame_errors=args.min_frame_errors,
-                     steps_per_call=args.steps_per_call, backend=args.backend,
-                     big_stage_backend=args.big_stage,
-                     subtree_backend=args.subtree,
-                     pipeline_depth=args.pipeline_depth)
-    print(json.dumps({"summary": [
-        {"ebn0_db": r["ebn0_db"], "fer": r["fer"], "ber": r["ber"],
-         "frames": r["frames"]} for r in recs]}))
+    common = dict(per_device_batch=args.per_device_batch, seed=args.seed,
+                  device=args.device, steps_per_call=args.steps_per_call,
+                  backend=args.backend, big_stage_backend=args.big_stage,
+                  subtree_backend=args.subtree,
+                  pipeline_depth=args.pipeline_depth)
+
+    def sweep():
+        t = time.perf_counter()
+        recs = run_sweep(preset, frames=args.frames, state_path=args.state,
+                         jsonl_path=args.jsonl,
+                         min_frame_errors=args.min_frame_errors, **common)
+        return recs, time.perf_counter() - t
+
+    if args.profile:
+        run_sweep(preset, frames=1, progress=False, **common)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            recs, seconds = sweep()
+        out = pathlib.Path(args.profile)
+        out.mkdir(parents=True, exist_ok=True)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        prof.export_chrome_trace(str(out / f"trace_rank{rank}.json"))
+    else:
+        recs, seconds = sweep()
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps({"seconds": seconds}))
+        print(json.dumps({"summary": [
+            {"ebn0_db": r["ebn0_db"], "fer": r["fer"], "ber": r["ber"],
+             "frames": r["frames"]} for r in recs]}))
+    if started:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

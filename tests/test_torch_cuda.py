@@ -1,6 +1,7 @@
 """The CUDA kernels (scl_decode, scl_decode_traj, scl_mc_traj,
 scl_mc_counters, and stage_down) against their plain PyTorch versions, on
-the card, for Arikan, eBCH and mixed-kernel codes.
+the card, for Arikan, eBCH and mixed-kernel codes; and the sweep's fetch,
+trace and multi-card step on the card.
 
 Run on a machine with an NVIDIA Hopper card (--noconftest: the suite's
 conftest imports JAX, which the port's machine need not have):
@@ -574,3 +575,86 @@ def test_arikan8_shared_memory_mirror(cuda):
     dyn, static = k.smem_bytes("scl_mc_counters", cuda)
     assert 5 * (dyn + static + 1024) <= 228 * 1024
     assert k.blocks_per_sm("scl_mc_counters", cuda) == 5
+
+
+# ~50 ms of torch.cuda._sleep at an H100's SM clock (up to 1.98 GHz)
+SLEEP_CYCLES = 100_000_000
+
+# one rank of the 2-card NCCL run: the sharded fused step on its card
+_NCCL_WORKER = r"""
+import json, sys
+import torch.distributed as dist
+from polar_tpu_torch.construction.ga import construct_ga
+from polar_tpu_torch.models.polar import CodeSpec, CrcSpec
+from polar_tpu_torch.parallel.mesh import (init_multihost, make_batch_mesh,
+                                           sharded_mc_step)
+from polar_tpu_torch.sim.harness import make_mc_step
+
+mask = tuple(int(v) for v in construct_ga(64, 24, 2.0))
+spec = CodeSpec(N=64, K=16, factors=(2,) * 6, frozen_mask=mask,
+                crc=CrcSpec(width=8, poly=0x07))
+assert init_multihost("cuda")
+mesh = make_batch_mesh()
+step = sharded_mc_step(make_mc_step(spec, 4, backend="fused"), mesh)
+out = step(3, 0, 5, 0.9, 4096)
+print("RESULT " + json.dumps({"rank": mesh.rank, "device": str(mesh.device),
+                              "frames": out["frames"],
+                              "counts": out["counts"].tolist()}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_fetch_waits_for_its_own_call(cuda):
+    """run_sweep's fetch of call n returns while call n+1 still runs: it
+    waits on call n's event, not on the stream."""
+    from polar_tpu_torch.sim.harness import CounterCopies
+    copies = CounterCopies(2, cuda)
+    first = torch.tensor([3, 4], dtype=torch.int64, device=cuda)
+    second = torch.tensor([5, 6], dtype=torch.int64, device=cuda)
+    torch.cuda.synchronize()
+    call_n = copies.start(1, first)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    call_n1 = copies.start(1, second + 0)
+    assert call_n.counts() == (3, 4)
+    assert not call_n1.event.query()
+    assert call_n1.counts() == (5, 6)
+
+
+def test_sharded_step_over_two_cards_nccl(cuda, tmp_path):
+    """Two ranks, one card each, over NCCL: the all-reduced counters ==
+    the sum of each rank's step computed on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import json
+    from polar_tpu_torch.parallel.mesh import launch
+    from polar_tpu_torch.sim.harness import make_mc_step
+    script = tmp_path / "worker.py"
+    script.write_text(_NCCL_WORKER)
+    res = sorted((json.loads(line[len("RESULT "):]) for line in
+                  launch(2, [str(script)], timeout=600).splitlines()
+                  if line.startswith("RESULT ")), key=lambda r: r["rank"])
+    spec = _spec(64, 16, CrcSpec(8, 0x07, 0))
+    step = make_mc_step(spec, 4, backend="fused", device=cuda)
+    own = [step(3, 0, 5, 0.9, 4096, rank=r) for r in (0, 1)]
+    total = [sum(int(o[f]) for o in own) for f in ("frame_errors", "bit_errors")]
+    assert [r["device"] for r in res] == ["cuda:0", "cuda:1"]
+    for r in res:
+        assert r["frames"] == 2 * 4096
+        assert r["counts"] == total
+
+
+def test_profile_traces_the_kernels(cuda, tmp_path, capsys):
+    """sweep_cli --profile on the card: a trace with the fused step's
+    kernel, read by trace_summary."""
+    import json
+    from polar_tpu_torch.sim import sweep_cli
+    from polar_tpu_torch.sim.kernel_times import trace_summary
+    sweep_cli.main(["--preset", "sweep", "--backend", "fused", "--snr", "2.0",
+                    "--frames", "32768", "--per-device-batch", "8192",
+                    "--profile", str(tmp_path)])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["summary"][0]["frames"] == 32768
+    s = trace_summary(tmp_path / "trace_rank0.json")
+    assert 0 < s["busy_share"] <= 1
+    assert "scl_mc_counters" in s["kernels"][0]["name"]
+    assert s["kernels"][0]["launches"] == 4

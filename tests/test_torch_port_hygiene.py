@@ -22,7 +22,8 @@ def _modules():
 
 def test_import_leaves_no_jax_or_polar_tpu():
     mods = _modules()
-    assert "polar_tpu_torch.ops.cuda_scl" in mods and len(mods) >= 20
+    assert {"polar_tpu_torch.ops.cuda_scl", "polar_tpu_torch.parallel.mesh",
+            "polar_tpu_torch.entry"} <= set(mods) and len(mods) >= 20
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -63,11 +64,13 @@ def test_default_device_raises_without_card():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_sweep_entry_points_raise_without_card():
+def test_sweep_entry_points_raise_without_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
+    from polar_tpu_torch import entry
     from polar_tpu_torch.models.presets import ca_scl, sweep
     from polar_tpu_torch.ops.mc import build_mc_step
+    from polar_tpu_torch.parallel import mesh
     from polar_tpu_torch.sim import sweep_cli
     from polar_tpu_torch.sim.harness import make_mc_step, run_sweep
 
@@ -83,6 +86,26 @@ def test_sweep_entry_points_raise_without_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep_cli.main(["--preset", "sweep", "--backend", "fused",
                         "--frames", "1"])
+    # the multi-device entry points: no card, no process group, no gloo
+    # in place of NCCL
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_batch_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.dryrun_multichip(2)
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "127.0.0.1"),
+                 ("MASTER_PORT", "29500"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    for backend in (None, "nccl"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mesh.init_multihost(backend=backend)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_cli.main(["--preset", "sweep", "--backend", "fused",
+                        "--frames", "1", "--dist-backend", "nccl"])
+    with pytest.raises(ValueError, match="NCCL"):
+        mesh.init_multihost(device="cpu", backend="nccl")
+    assert not torch.distributed.is_initialized()
 
 
 def test_every_smoke_kernel_counts_its_launches():
