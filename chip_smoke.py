@@ -122,7 +122,26 @@ Phases (any failure exits non-zero):
    (the n-card rate); a resume that adds no frame; the same sweep on one
    card in one process (the one-card rate); entry.dryrun_multichip(n).
    `--multi` runs phases 1, 2 and 25 alone (for a call with several
-   cards).
+   cards);
+26. the decoder knobs and construct_mc: (a) ca_scl (L=8) and bch_sc (L=1
+   and 8) through each knob alone (genie at L=1, fast=False,
+   fast_r1_scl=False, unroll=False, f_mode="exact", pm_mode="smooth",
+   llr_dtype=bfloat16; bch_sc with big_stage_backend="pallas"): the op
+   program on the card == the same knob on the CPU on 256 frames at 2.0
+   dB (min-sum knobs bit for bit; exact, smooth, bfloat16: u, payload,
+   crc_ok, pm within allclose(rtol=1e-5, atol=1e-4)), K1 and K2 launched
+   0 times, K6 as often as the knob's program has l > 2 min-sum DOWN
+   ops, each route's ms at B=8192; (b) bfloat16 at full width: ca_scl L=8,
+   2^17 `mc_draw` frames through the bfloat16 route and through K1:
+   frame errors |z| < 4 against results/bf16_ab.jsonl's bfloat16 arm and
+   against K1, the share of frames whose u equals K1's, both cw/s; (c)
+   construct_mc of the committed bch_n256_k128 and mixed_n4096_k2064
+   (scripts/gen_sequences.py's arguments: 2.0 dB, 2^15 frames, seed 0;
+   B=8192), K6 launches counted from 0: the unfrozen count, and every
+   leaf on which the mask and the committed artifact disagree within 4
+   binomial sd of the port's cut; 4,096 bch_n256 frames from the same
+   Philox keys on the card and the CPU (at most 1 frame in 10^4 differs);
+   K6 timed at the genie decode's 255 launches.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -193,6 +212,17 @@ TRACE_BATCHES = 4           # batches of the traced mixed_scl32 window
 MULTI_SNR = ("1.0", "2.0")  # the points of the multi-card sweep
 MULTI_STEPS = 4             # steps a point recomputed rank by rank
 MULTI_TIMEOUT = 600         # seconds for each multi-rank run
+KNOB_FRAMES = 64            # frames of each knob route on the card and the CPU
+                            # (256 cut for time: the CPU side)
+KNOB_SEED = 2026
+BF16_REF = "bf16_ab.jsonl"  # the TPU A/B: its frame counts, not its speeds
+BF16_BATCHES = 16           # 2^17 frames of the bfloat16 A/B
+# the committed artifacts' construction (scripts/gen_sequences.py): name,
+# kernels, unfrozen leaves, frames; 2.0 dB, seed 0
+CONSTRUCTIONS = (("bch_n256_k128", (16, 16), 128, 1 << 15),
+                 ("mixed_n4096_k2064", (16, 16, 2, 2, 2, 2), 2064, 1 << 15))
+CONSTRUCT_SD = 4.0          # a leaf the masks disagree on: within 4 sd of the cut
+CONSTRUCT_SAME_FRAMES = 4096    # bch_n256's genie decode on the card and the CPU
 
 
 def all_launches() -> dict:
@@ -213,6 +243,20 @@ def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
     if p in (0.0, 1.0):
         return 0.0
     return (e1 / n1 - e2 / n2) / math.sqrt(p * (1 - p) * (1 / n1 + 1 / n2))
+
+
+def ulp_flips(decode, x: torch.Tensor) -> int:
+    """Frames whose decisions change when every input LLR moves one ulp up
+    (the decoder's own sensitivity to its inputs' last bit)."""
+    up = torch.nextafter(x, torch.full_like(x, math.inf))
+    return int((decode(x).u != decode(up).u).any(dim=1).sum())
+
+
+def rate_z(p: float, q: float, n: int) -> float:
+    """p - q in standard deviations of the difference of two binomial
+    estimates over n frames each (0 where both are 0 or 1)."""
+    sd = math.sqrt((p * (1 - p) + q * (1 - q)) / n)
+    return (p - q) / sd if sd else 0.0
 
 
 def reference_points() -> list[dict]:
@@ -449,17 +493,18 @@ def mixed_spec(factors, K: int, crc, seed: int = 1):
                     frozen_mask=tuple(int(v) for v in mask), crc=crc)
 
 
-def stage_launch_set(spec, P: int, level: int | None = None
+def stage_launch_set(spec, P: int, level: int | None = None, **knobs
                      ) -> list[tuple[int, int, int]]:
     """(i, paths, n) of every stage-kernel launch of one hybrid decode: each
     l > 2 DOWN op with i < l-1 (a stage-1 DOWN_FRESH runs at one path);
-    `level`: only the DOWN ops of that stage."""
+    `level`: only the DOWN ops of that stage; `knobs`: build_program's
+    (classify, fast_r1_scl, genie) for a decode with decoder knobs."""
     from polar_tpu_torch.ops.program import build_program
     from polar_tpu_torch.ops.schedule import build_schedule
 
     digits = build_schedule(spec).digits
     out = []
-    for op in build_program(spec, scl=P > 1).ops:
+    for op in build_program(spec, scl=P > 1, **knobs).ops:
         if (op.kind not in ("DOWN_FRESH", "DOWN_DYN")
                 or level not in (None, op.level)):
             continue
@@ -1040,6 +1085,199 @@ def fetch_and_trace(dev, card, fused_all_rate: float, k5_rate: float) -> None:
     print(f"sweep ca_scl fused, all frames over all wall time (phase 10) "
           f"{fused_all_rate} cw_per_s; K5 alone (phase 11) {k5_rate} cw_per_s; "
           f"ratio {fused_all_rate / k5_rate} [{card}]")
+
+
+def knob_phases(dev, card, main_path) -> dict:
+    """Phase 26: the decoder knobs through the op program on the card, the
+    bfloat16 A/B at full width, and Monte-Carlo construction of the
+    committed BCH and mixed codes. Returns the stage kernel's numbers of
+    this phase for the kernel table."""
+    from polar_tpu_torch.construction import montecarlo
+    from polar_tpu_torch.models.presets import get_preset
+    from polar_tpu_torch.ops import cuda_stage
+    from polar_tpu_torch.ops.mc import count_errors, mc_draw
+    from polar_tpu_torch.ops.philox import step_seed
+    from polar_tpu_torch.ops.scl import build_scl_decoder
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+
+    cpu = torch.device("cpu")
+    # ---- 26(a). each knob alone through the op program, card against CPU ----
+    knobs = (({"genie": True}, True), ({"fast": False}, True),
+             ({"fast_r1_scl": False}, True), ({"unroll": False}, True),
+             ({"f_mode": "exact"}, False), ({"pm_mode": "smooth"}, False),
+             ({"llr_dtype": torch.bfloat16}, False))
+    n_routes = 0
+    for pname, L in (("ca_scl", 8), ("bch_sc", 1), ("bch_sc", 8)):
+        spec = get_preset(pname).spec
+        sigma = float(ebn0_to_sigma(EBN0_DB, spec.rate))
+        _, llr = mc_draw(spec, step_seed(KNOB_SEED, 0, L, 0), sigma, KNOB_FRAMES, dev)
+        _, llr_b = mc_draw(spec, step_seed(KNOB_SEED, 1, L, 0), sigma, BATCH, dev)
+        big = "pallas" if any(f > 2 for f in spec.factors) else "xla"
+        for kw, exact in knobs:
+            if kw.get("genie") and L != 1:
+                continue
+            label = " ".join(f"{k}={v}" for k, v in kw.items())
+            dec = build_scl_decoder(spec, L, device=dev, big_stage_backend=big, **kw)
+            ref = build_scl_decoder(spec, L, device=cpu, big_stage_backend=big, **kw)
+            zero_launches()
+            out = dec(llr)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            minsum = "f_mode" not in kw
+            program = dict(classify=kw.get("fast", True) and minsum
+                           and "pm_mode" not in kw,
+                           fast_r1_scl=kw.get("fast_r1_scl", True),
+                           genie=kw.get("genie", False))
+            want_k6 = (len(stage_launch_set(spec, L, **program))
+                       if big == "pallas" and minsum else 0)
+            if (launches["scl_decode"], launches["scl_decode_traj"],
+                    launches["stage_down"]) != (0, 0, want_k6):
+                raise SystemExit(f"{pname} L={L} {label}: launches {launches}, "
+                                 f"not K1/K2 0 and K6 {want_k6}")
+            x = llr.cpu()
+            want = ref(x)
+            agree = ((out.u.cpu() == want.u).all(dim=1)
+                     & (out.payload.cpu() == want.payload).all(dim=1)
+                     & (out.crc_ok.cpu() == want.crc_ok))
+            differ = int((~agree).sum())
+            # f_mode="exact": the reference's f cancels for small inputs, so
+            # its decisions move with libm's last ulp; the card may differ
+            # on as many frames as a 1-ulp change of the input flips on the
+            # CPU, twice over, plus 1% of the frames
+            allowed = (2 * ulp_flips(ref, x) + math.ceil(0.01 * KNOB_FRAMES)
+                       if "f_mode" in kw else 0)
+            diff = float((out.pm.cpu()[agree].double()
+                          - want.pm[agree].double()).abs().max()) if agree.any() else 0.0
+            pm_ok = (torch.equal(out.pm.cpu(), want.pm) if exact else
+                     torch.allclose(out.pm.cpu()[agree], want.pm[agree],
+                                    rtol=1e-5, atol=1e-4))
+            if differ > allowed or not pm_ok:
+                raise SystemExit(f"{pname} L={L} {label}: card != CPU (frames "
+                                 f"whose u, payload or crc_ok differ {differ}, "
+                                 f"allowed {allowed}; pm max abs err {diff})")
+            # the decode above warmed the route; its first call at B=8192
+            # also grows the caching allocator (ms against 100s of ms)
+            ms = time_ms(lambda: dec(llr_b), iters=1, warmup=0)
+            n_routes += 1
+            print(f"knob route: {pname} L={L} {label}: route {dec.route!r}; "
+                  f"card against CPU on {KNOB_FRAMES} frames at {EBN0_DB} dB "
+                  f"({'bit for bit' if exact else 'u, payload, crc_ok; pm'} "
+                  f"max abs err {diff}; frames differing {differ}, allowed "
+                  f"{allowed}); launches K1 0, K2 0, K6 "
+                  f"{launches['stage_down']}; B={BATCH} ms={ms} "
+                  f"cw_per_s={BATCH / ms * 1e3} [{card}]")
+
+    # ---- 26(b). bfloat16 at full width: ca_scl L=8, the bf16 route and K1 ----
+    spec = get_preset("ca_scl").spec
+    sigma = float(ebn0_to_sigma(EBN0_DB, spec.rate))
+    rec16 = [json.loads(line) for line in
+             (ROOT / "results" / BF16_REF).read_text().splitlines()
+             if json.loads(line)["arm"] == "bfloat16"][0]
+    keys = [step_seed(KNOB_SEED, 2, k, 0) for k in range(BF16_BATCHES)]
+
+    def run(dec):
+        errors, us = 0, []
+        for key in keys:
+            u_true, llr = mc_draw(spec, key, sigma, BATCH, dev)
+            out = dec(llr)
+            errors = errors + count_errors(spec, out.u, u_true)[0].sum()
+            us.append(out.u)
+        return int(errors), us
+
+    bf16 = build_scl_decoder(spec, 8, device=dev, llr_dtype=torch.bfloat16)
+    zero_launches()
+    t = time.perf_counter()
+    fe16, u16 = run(bf16)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t
+    launches = all_launches()
+    print(f"launches: {launches} in the bf16 A/B's bfloat16 route")
+    if launches["scl_decode"] or launches["scl_decode_traj"]:
+        raise SystemExit("the bfloat16 route launched K1 or K2")
+    (fe32, u32), wall32 = main_path("scl_decode", "bf16 A/B, K1 (float32)",
+                                    lambda: run(build_scl_decoder(spec, 8, device=dev)),
+                                    into={})
+    n = BF16_BATCHES * BATCH
+    same = sum(int((a == b).all(dim=1).sum()) for a, b in zip(u16, u32))
+    z_rec = two_proportion_z(fe16, n, rec16["frame_errors"], rec16["frames"])
+    z_k1 = two_proportion_z(fe16, n, fe32, n)
+    print(f"bf16 A/B: ca_scl L=8 {EBN0_DB} dB, {n} frames (mc_draw): bfloat16 "
+          f"route ({bf16.route!r}) frame_errors={fe16} fer={fe16 / n}, K1 "
+          f"float32 frame_errors={fe32} fer={fe32 / n}; z vs {BF16_REF} "
+          f"bfloat16 arm ({rec16['frame_errors']}/{rec16['frames']}) {z_rec}, "
+          f"z vs K1 {z_k1}; frames whose u equals K1's {same} of {n} "
+          f"({same / n}); cw_per_s incl. mc_draw: bfloat16 route {n / wall16}, "
+          f"K1 {n / wall32} [{card}]")
+    if abs(z_rec) >= SWEEP_Z_LIMIT or abs(z_k1) >= SWEEP_Z_LIMIT:
+        raise SystemExit(f"bf16 A/B: |z| >= {SWEEP_Z_LIMIT} ({z_rec}, {z_k1})")
+
+    # ---- 26(c). construct_mc of the committed BCH and mixed codes ----
+    k6 = {}
+    for name, factors, n_unf, frames in CONSTRUCTIONS:
+        N = int(np.prod(factors))
+        k6[name] = {}
+        err, wall = main_path(
+            "stage_down", f"construct_mc {name}",
+            lambda: montecarlo.mc_leaf_error_rates(
+                factors, EBN0_DB, n_unf / N, frames=frames, batch=BATCH,
+                seed=0, device=dev), into=k6[name])
+        mask = montecarlo.frozen_from_rates(err, n_unf)
+        committed = np.load(ROOT / "polar_tpu_torch" / "models" / "sequences"
+                            / f"{name}.npy")
+        order = np.argsort(err, kind="stable")
+        cut = float(0.5 * (err[order[n_unf - 1]] + err[order[n_unf]]))
+        off = np.nonzero(mask != committed)[0]
+        z = {int(i): rate_z(float(err[i]), cut, frames) for i in off}
+        far = [i for i, zi in z.items() if abs(zi) > CONSTRUCT_SD]
+        print(f"construct_mc {name} {factors} at {EBN0_DB} dB: {frames} frames "
+              f"(batch {BATCH}, seed 0) in {wall} s = {frames / wall} frames_per_s; "
+              f"unfrozen {N - int(mask.sum())}; leaves disagreeing with the "
+              f"committed artifact {off.size}: cut {cut} ({cut * frames} errors); "
+              f"(leaf, errors, frozen in the artifact, z) "
+              f"{[(i, round(float(err[i]) * frames), int(committed[i]), round(z[i], 2)) for i in z]}; "
+              f"beyond {CONSTRUCT_SD} sd: {far}; sd at the cut alone "
+              f"{math.sqrt(cut * (1 - cut) / frames)}; K6 launches "
+              f"{k6[name]['stage_down']} [{card}]")
+        if N - int(mask.sum()) != n_unf or far:
+            raise SystemExit(f"construct_mc {name}: wrong count or leaves beyond "
+                             f"{CONSTRUCT_SD} sd of the cut: {far}")
+    # the same Philox keys on the card and on the CPU
+    N = 256
+    sigma = float(ebn0_to_sigma(EBN0_DB, 0.5))
+    llr = montecarlo.genie_llrs(N, sigma, 0, 0, CONSTRUCT_SAME_FRAMES, dev)
+    u_card = montecarlo.genie_decoder((16, 16), dev)(llr).u.cpu()
+    u_cpu = montecarlo.genie_decoder((16, 16), cpu)(
+        montecarlo.genie_llrs(N, sigma, 0, 0, CONSTRUCT_SAME_FRAMES, cpu)).u
+    differ = int((u_card != u_cpu).any(dim=1).sum())
+    print(f"construct_mc bch_n256 genie decode, {CONSTRUCT_SAME_FRAMES} frames "
+          f"from the same Philox keys on the card and on the CPU: {differ} "
+          f"frames differ; leaf error counts {int(u_card.sum())} / "
+          f"{int(u_cpu.sum())}")
+    if differ > math.ceil(DIFF_LIMIT * CONSTRUCT_SAME_FRAMES):
+        raise SystemExit(f"construct_mc: {differ} frames differ between card "
+                         f"and CPU")
+
+    # K6 alone at the genie program's launches (bch_n256, B=8192)
+    K16 = get_preset("bch_sc").spec.kernels[0]
+    launches = stage_launch_set(get_preset("bch_sc").spec, 1, classify=False,
+                                genie=True)
+    sgen = torch.Generator(device=dev).manual_seed(26)
+    fns = [(cuda_stage.build_down_kernel(K16, i, paths, n),
+            2.0 * torch.randn((paths, 16, n, BATCH), generator=sgen, device=dev))
+           for i, paths, n in launches]
+    r = dict(bound(sum(4 * 17 * paths * n * BATCH for _, paths, n in launches),
+                   sum(paths * n * BATCH * stage_down_ops(K16, i)
+                       for i, paths, n in launches)),
+             ms=time_ms(lambda: [f(v) for f, v in fns], iters=3, reps=3),
+             plain_ms=time_ms(lambda: [f.plain(v) for f, v in fns], 1, 1))
+    print(f"time: stage_down, the {len(launches)} launches of one genie bch_n256 "
+          f"decode (construct_mc), B={BATCH} ms={r['ms']} plain_ms="
+          f"{r['plain_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}: "
+          f"bytes={r['bytes']} {r['t_bytes']} ms, element_ops={r['ops']} "
+          f"{r['t_ops']} ms) [{card}]")
+    return {"launches": {name: k6[name]["stage_down"] for name in k6},
+            "launches_a_genie_decode": len(launches),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
 def _records(stdout: str) -> list[dict]:
@@ -1623,6 +1861,8 @@ def main() -> int:
                     BATCH / rows["scl_mc_counters"]["ms"] * 1e3)
     # ---- 25. the multi-card sweep ----
     multi_card(dev, card)
+    # ---- 26. the decoder knobs, the bfloat16 A/B and construct_mc ----
+    knob_rows = knob_phases(dev, card, main_path)
     print("library: no single PyTorch call computes an SCL decode, the "
           "Monte-Carlo step, a depth-1 child's list decode or a "
           "trellis/tail-table marginal (library_ms null)")
@@ -1643,6 +1883,7 @@ def main() -> int:
     }, **({"bch_sc": dict(bch_rows[name], launches=bch_launches[name])}
           if name in bch_rows else {}),
         **({"mixed_scl32": mixed_rows[name]} if name in mixed_rows else {}),
+        **({"construct_mc": knob_rows} if name == "stage_down" else {}),
         **({"b2048": {k: rows[name][k] for k in ("ms_b2048", "bound_ms_b2048")}}
            if name == "scl_subtree" else {})) for name in KERNELS]}))
     print(card)

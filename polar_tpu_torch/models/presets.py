@@ -36,7 +36,10 @@ class Preset:
 
 
 def _load_mask(name: str, factors, n_unfrozen: int,
-               design_ebn0_db: float = 2.0) -> tuple[int, ...]:
+               design_ebn0_db: float = 2.0, device="cuda") -> tuple[int, ...]:
+    """The committed frozen mask `name`, or one built on the fly: GA for
+    pure-Arikan kernels, else genie Monte-Carlo on `device` (the card
+    unless the caller asks for the CPU)."""
     path = _SEQ_DIR / f"{name}.npy"
     if path.exists():
         mask = np.load(path)
@@ -49,9 +52,9 @@ def _load_mask(name: str, factors, n_unfrozen: int,
         from polar_tpu_torch.construction.ga import construct_ga
         mask = construct_ga(N, n_unfrozen, design_ebn0_db)
     else:
-        raise NotImplementedError(
-            "Monte-Carlo construction is not ported yet (ROADMAP Queue 1 "
-            "item 5, construct_mc); commit the sequence artifact instead")
+        from polar_tpu_torch.construction.montecarlo import construct_mc
+        mask = construct_mc(tuple(factors), n_unfrozen, design_ebn0_db,
+                            device=device)
     return tuple(int(v) for v in mask)
 
 

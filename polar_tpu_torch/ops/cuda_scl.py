@@ -422,6 +422,8 @@ class SclDecoder:
     decode finishes in-kernel (scl_decode); otherwise scl_decode_traj
     emits the genealogy and `scl_epilogue` finishes it."""
 
+    route = "decode kernels"
+
     def __init__(self, spec: CodeSpec, list_size: int,
                  device: torch.device = torch.device("cuda"),
                  select: bool | None = None):

@@ -176,7 +176,9 @@ class StageProcessor:
             from polar_tpu_torch.ops.cuda_stage import build_down_kernel
 
             p0, _, n, _ = lam_adj.shape
-            return build_down_kernel(self.kernel, i, p0, n)(lam_adj)
+            # the kernel reads float32 (the JAX package's kernel casts too)
+            return build_down_kernel(self.kernel, i, p0, n)(
+                lam_adj.to(torch.float32))
         return self.plain_llr(i, lam_adj)
 
     def plain_llr(self, i: int, lam_adj: torch.Tensor) -> torch.Tensor:

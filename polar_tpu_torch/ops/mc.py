@@ -40,19 +40,25 @@ def mc_frames(spec: CodeSpec, seed: tuple[int, int], batch: int, device=None):
     """The frames of one step: (u_true [B, N] int8, x [B, N] int8, gauss
     [B, N] float32 standard normals)."""
     N, K = spec.N, spec.K
-    nh = N // 2
     w = random_words(seed, batch, 2 * N, device)
     data_rows = torch.as_tensor(spec.info_positions[:K], device=w.device)
     info = (w[:, data_rows] & 1).to(torch.int8)                   # [B, K]
     payload = crc_append(spec.crc, info) if spec.crc is not None else info
     u_true = assemble_u(spec, payload)
     x = encode_u(spec, u_true)
-    u1 = ((w[:, N:N + nh] >> 8).to(torch.float32) + 1.0) * TWO_M24   # (0, 1]
-    u2 = (w[:, N + nh:] >> 8).to(torch.float32) * TWO_M24            # [0, 1)
+    return u_true, x, box_muller(w[:, N:])
+
+
+def box_muller(w: torch.Tensor) -> torch.Tensor:
+    """[B, n] float32 standard normals from [B, n] 32-bit words (n even):
+    words [0, n/2) give the uniforms u1, words [n/2, n) the uniforms u2,
+    the cos half fills columns [0, n/2) and the sin half [n/2, n)."""
+    nh = w.shape[1] // 2
+    u1 = ((w[:, :nh] >> 8).to(torch.float32) + 1.0) * TWO_M24        # (0, 1]
+    u2 = (w[:, nh:] >> 8).to(torch.float32) * TWO_M24                # [0, 1)
     r = torch.sqrt(-2.0 * torch.log(u1))
     th = u2 * TWO_PI
-    gauss = torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=1)
-    return u_true, x, gauss
+    return torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=1)
 
 
 def mc_channel(x: torch.Tensor, gauss: torch.Tensor, sigma) -> torch.Tensor:

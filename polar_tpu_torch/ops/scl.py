@@ -1,13 +1,16 @@
 """Batched SC / CRC-aided SC-list decoder, plain PyTorch version.
 
-Counterpart of polar_tpu/ops/scl.py in its default configuration (fast
-node program, Fast-SSCL R1/SPC forks, float32, min-sum f, |llr| path
-metric, no genie), for Arikan, eBCH (4x4 .. 16x16) and mixed kernels:
-each stage's DOWN and UP go through ops/kernel_proc.py StageProcessor
-(f/g for 2x2, the syndrome trellis or tail table for larger kernels). It
-is the plain version of the hand-written CUDA decode kernels
+Counterpart of polar_tpu/ops/scl.py, for Arikan, eBCH (4x4 .. 16x16) and
+mixed kernels: each stage's DOWN and UP go through ops/kernel_proc.py
+StageProcessor (f/g for 2x2, the syndrome trellis or tail table for
+larger kernels). In its default configuration (fast node program,
+Fast-SSCL R1/SPC forks, float32, min-sum f, |llr| path metric, no genie)
+it is the plain version of the hand-written CUDA decode kernels
 (ops/cuda_scl.py, csrc/scl_decode.cu): the CPU runs it, and the card
-checks the kernels against it.
+checks the kernels against it. It also takes the JAX package's decoder
+knobs (genie, fast, fast_r1_scl, llr_dtype, f_mode, pm_mode), which the
+kernels do not: `build_scl_decoder` runs a decode with a knob as this op
+program on the caller's device.
 
 A batch of B codewords x P list paths decodes in lockstep over the
 host-built fast-SSCL op program (ops/program.py). Tal-Vardy lazy copies
@@ -45,8 +48,12 @@ MAX_LIST = 32
 KERNEL_SIZES = (2, 4, 8, 16)
 BIG_STAGE_BACKENDS = ("xla", "pallas")
 SUBTREE_BACKENDS = ("none", "pallas")
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 5: decoder knobs)"
+F_MODES = ("minsum", "exact")
+PM_MODES = ("abs", "smooth")
+# the knobs of the JAX package's build_scl_decoder and their defaults
+KNOB_DEFAULTS = {"genie": False, "fast": True, "fast_r1_scl": True,
+                 "llr_dtype": torch.float32, "unroll": True,
+                 "f_mode": "minsum", "pm_mode": "abs"}
 
 
 class DecodeResult(NamedTuple):
@@ -64,6 +71,32 @@ def check_supported(spec: CodeSpec, list_size: int) -> None:
             f"{KERNEL_SIZES} (build_bch_kernel's) are not ported")
     if not 1 <= int(list_size) <= MAX_LIST:
         raise ValueError(f"list_size {list_size} outside 1..{MAX_LIST}")
+
+
+def check_knobs(list_size: int, genie: bool, f_mode: str, pm_mode: str) -> None:
+    """The JAX package's refusals of knob values, with its messages."""
+    if genie and int(list_size) != 1:
+        raise ValueError("genie mode requires list_size=1")
+    if pm_mode not in PM_MODES:
+        raise ValueError(f"unknown pm_mode {pm_mode!r}")
+    if f_mode not in F_MODES:
+        raise ValueError(f"unknown f_mode {f_mode!r}")
+
+
+def pen_abs(lam: torch.Tensor) -> torch.Tensor:
+    """Path-metric penalty of deciding the bit u with (1 - 2u) * llr = lam,
+    pm_mode="abs": max(-lam, 0), in float32."""
+    return torch.clamp_min(-lam.to(torch.float32), 0.0)
+
+
+def pen_smooth(lam: torch.Tensor) -> torch.Tensor:
+    """The same penalty, pm_mode="smooth": log(1 + e^-lam) in float32, as
+    the JAX package computes it (jax.nn.softplus(-lam) = logaddexp(-lam,
+    0) = max(x, 0) + log1p(exp(-|x|)) at x = -lam).
+    torch.nn.functional.softplus is another expression (log1p(exp(x)) up
+    to its threshold, x above it) and rounds differently."""
+    x = -lam.to(torch.float32)
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -206,17 +239,20 @@ class _State:
     or, for a depth-1 child decoded on its own (`build_plain_subtree`),
     from a path-bound input block lam1 [P, N, B] and the parent's metrics
     pm [P, B]: path p reads row netmap[p] of it, netmap composing every
-    fork since the start."""
+    fork since the start. The channel LLRs and every carried LLR buffer
+    are stored in `llr_dtype` (the JAX package's two choke points: lam0 and
+    the end of each DOWN)."""
 
     def __init__(self, spec: CodeSpec, P: int, llrs: torch.Tensor,
-                 pm: torch.Tensor | None = None):
+                 pm: torch.Tensor | None = None,
+                 llr_dtype: torch.dtype = torch.float32):
         bsz = llrs.shape[-1] if pm is not None else llrs.shape[0]
         dev = llrs.device
         m = len(spec.factors)
         ns = spec.block_sizes
         self.iota = torch.arange(P, device=dev)[:, None].expand(P, bsz)
         if pm is None:
-            self.lam0 = llrs.T.to(torch.float32)                   # [N, B]
+            self.lam0 = llrs.T.to(llr_dtype)                       # [N, B]
             self.netmap = None
             self.pm = torch.full((P, bsz), BIG, device=dev)
             self.pm[0] = 0.0
@@ -225,7 +261,7 @@ class _State:
             self.netmap = self.iota
             self.pm = pm
         # index s-1 holds stage s (s = 1..m)
-        self.lam = [torch.zeros((P, ns[s], bsz), device=dev)
+        self.lam = [torch.zeros((P, ns[s], bsz), dtype=llr_dtype, device=dev)
                     for s in range(1, m + 1)]
         self.dec = [torch.zeros((spec.factors[s - 1], P, ns[s], bsz),
                                 dtype=torch.int8, device=dev)
@@ -291,17 +327,28 @@ class _Program(NamedTuple):
     digits: np.ndarray        # leaf -> kernel input index per stage
 
 
-def _build_program_steps(spec: CodeSpec, P: int,
-                         stage_kernel: bool = False) -> _Program:
-    """Each op of the fast-SSCL program as a handler fn(state, level, t0)
-    on a `_State`."""
+def _build_program_steps(spec: CodeSpec, P: int, stage_kernel: bool = False,
+                         genie: bool = False, fast: bool = True,
+                         fast_r1_scl: bool = True,
+                         llr_dtype: torch.dtype = torch.float32,
+                         f_mode: str = "minsum",
+                         pm_mode: str = "abs") -> _Program:
+    """Each op of the program as a handler fn(state, level, t0) on a
+    `_State`: the fast-SSCL program, or with the knobs (the JAX package's
+    build_scl_decoder's) the leaf-sequential one."""
+    check_knobs(P, genie, f_mode, pm_mode)
+    if f_mode != "minsum" or pm_mode != "abs":
+        fast = False  # node shortcuts assume min-sum/abs telescoping
     m = len(spec.factors)
     ns = spec.block_sizes
     factors = spec.factors
     digits = build_schedule(spec).digits
     frozen = spec.frozen.astype(bool)
-    program = build_program(spec, scl=(P > 1))
-    procs = [StageProcessor(k, stage_kernel=stage_kernel) for k in spec.kernels]
+    program = build_program(spec, scl=(P > 1), classify=fast,
+                            fast_r1_scl=fast_r1_scl, genie=genie)
+    procs = [StageProcessor(k, f_mode=f_mode, stage_kernel=stage_kernel)
+             for k in spec.kernels]
+    pen = pen_smooth if pm_mode == "smooth" else pen_abs
     inv_kernels = staged_inverse_kernels(spec)
     # per depth d: the inverses of the kernels below, None if all Arikan
     inverses = [None if all(f == 2 for f in factors[d:]) else
@@ -322,7 +369,7 @@ def _build_program_steps(spec: CodeSpec, P: int,
         else:
             i = int(digits[t0, s - 1])
             llr = procs[s - 1].static_llr(i, view, st.dec_children(s, i))
-        st.lam[s - 1] = llr.expand(P, n, llr.shape[-1]).contiguous()
+        st.lam[s - 1] = llr.expand(P, n, llr.shape[-1]).to(llr_dtype).contiguous()
         st.rlam[s - 1] = st.iota
 
     def up(st: _State, s: int, t0: int) -> None:
@@ -330,9 +377,14 @@ def _build_program_steps(spec: CodeSpec, P: int,
         st.write_dec(s - 1, int(digits[t0, s - 2]),
                      x.reshape(P, ns[s - 1], x.shape[-1]))
 
+    def node_sum(lam: torch.Tensor, pens: torch.Tensor) -> torch.Tensor:
+        """A node's metric sum, rounded to the LLR dtype as the JAX
+        package's jnp.sum over lam rounds it (a no-op in float32)."""
+        return tree_sum(pens).to(lam.dtype).to(torch.float32)
+
     def r0(st: _State, d: int, t0: int) -> None:
         lam = st.lam[d - 1]
-        st.pm = st.pm + tree_sum(torch.clamp_min(-lam, 0.0))
+        st.pm = st.pm + node_sum(lam, pen(lam))
         zeros = torch.zeros_like(lam, dtype=torch.int8)
         st.write_traj(t0, st.iota, zeros)
         st.write_dec(d, int(digits[t0, d - 1]), zeros)
@@ -340,8 +392,8 @@ def _build_program_steps(spec: CodeSpec, P: int,
     def rep(st: _State, d: int, t0: int) -> None:
         lam = st.lam[d - 1]
         n = ns[d]
-        s0 = tree_sum(torch.clamp_min(-lam, 0.0))
-        s1 = tree_sum(torch.clamp_min(lam, 0.0))
+        s0 = node_sum(lam, pen(lam))
+        s1 = node_sum(lam, pen(-lam))
         if P == 1:
             bit = (s1 < s0).to(torch.int8)
             pm = st.pm + torch.where(bit == 1, s1, s0)
@@ -378,7 +430,7 @@ def _build_program_steps(spec: CodeSpec, P: int,
         # Fast-SSCL: q keep/flip forks on the least reliable positions;
         # flips are recorded per round and mapped to final indexing after
         q = min(P - 1, n)
-        vals, poss = extract_mins(lam.abs(), q)
+        vals, poss = extract_mins(lam.abs().to(torch.float32), q)
         node_map = st.iota
         pm = st.pm
         perms, flips = [], []
@@ -403,7 +455,7 @@ def _build_program_steps(spec: CodeSpec, P: int,
         n = ns[d]
         hd = (lam < 0).to(torch.int8)
         par = (hd.sum(dim=1, dtype=torch.int32) % 2).to(torch.int8)   # [P, B]
-        absl = lam.abs()
+        absl = lam.abs().to(torch.float32)
         if P == 1:
             vals, poss = extract_mins(absl, 1)
             xhat = flip_at(hd, poss[0], par)
@@ -436,10 +488,9 @@ def _build_program_steps(spec: CodeSpec, P: int,
 
     def leaf(st: _State, d: int, t: int) -> None:
         lam = st.lam[m - 1][:, 0]
-        pen0 = torch.clamp_min(-lam, 0.0)
-        pen1 = torch.clamp_min(lam, 0.0)
+        pen0, pen1 = pen(lam), pen(-lam)
         perm = st.iota
-        if frozen[t]:
+        if genie or frozen[t]:
             bit = torch.zeros_like(lam, dtype=torch.int8)
             st.pm = st.pm + pen0
         elif P == 1:
@@ -448,7 +499,10 @@ def _build_program_steps(spec: CodeSpec, P: int,
         else:
             st.pm, perm, bit = fork2(st.pm, pen0, pen1)
             st.apply_perm(perm)
-        st.write_traj(t, perm, bit[:, None, :])
+        # genie: every leaf decides the all-zero codeword's bit 0, and the
+        # trajectory records the leaf's error, lam < 0
+        traj = (lam < 0).to(torch.int8) if genie else bit
+        st.write_traj(t, perm, traj[:, None, :])
         st.write_dec(m, int(digits[t, m - 1]), bit[:, None, :])
 
     handlers = {
@@ -463,7 +517,10 @@ def _build_program_steps(spec: CodeSpec, P: int,
 def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
                             trajectory: bool = False,
                             stage_kernel: bool = False,
-                            subtree: bool = False):
+                            subtree: bool = False, genie: bool = False,
+                            fast: bool = True, fast_r1_scl: bool = True,
+                            llr_dtype: torch.dtype = torch.float32,
+                            f_mode: str = "minsum", pm_mode: str = "abs"):
     """decode(llrs [B, N] float32 tensor) -> DecodeResult, in plain PyTorch
     on the tensor's own device (the CUDA kernel's plain version).
 
@@ -478,6 +535,18 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
     `build_scl_decoder(big_stage_backend="pallas")`; on a CPU tensor it is
     the plain decoder.
 
+    genie, fast, fast_r1_scl, llr_dtype, f_mode, pm_mode: the JAX
+    package's decoder knobs (polar_tpu/ops/scl.py build_scl_decoder), with
+    its refusals (ValueError). f_mode="exact" or pm_mode="smooth" turns
+    `fast` off; the stage kernel computes min-sum marginals only (with
+    f_mode="exact" the l > 2 DOWNs stay PyTorch ops); with
+    llr_dtype=torch.bfloat16 the channel LLRs and the
+    carried LLR buffers are bfloat16, penalties and path metrics float32;
+    genie (list size 1) decides every leaf as the all-zero codeword and
+    returns u = the leaves' errors (lam < 0). The JAX package's
+    unroll=False gives the same results as its unrolled program, which is
+    the form this program always takes.
+
     subtree=True: the walk of `subtree_items` (the JAX package's
     subtree_backend="pallas"): each depth-1 child of more than one op is
     one call of its `core_sub` (ops/cuda_scl.py SubtreeKernel: the CUDA
@@ -486,7 +555,9 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
     the default walk computes, bit for bit."""
     check_supported(spec, list_size)
     P = int(list_size)
-    prog = _build_program_steps(spec, P, stage_kernel)
+    prog = _build_program_steps(spec, P, stage_kernel, genie=genie, fast=fast,
+                                fast_r1_scl=fast_r1_scl, llr_dtype=llr_dtype,
+                                f_mode=f_mode, pm_mode=pm_mode)
     steps = prog.steps
     items = [("op", j) for j in range(len(steps))]
     if subtree:
@@ -516,7 +587,7 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
         if llrs.ndim != 2 or llrs.shape[1] != spec.N:
             raise ValueError(f"llrs must be [B, {spec.N}], got "
                              f"{tuple(llrs.shape)}")
-        st = _State(spec, P, llrs)
+        st = _State(spec, P, llrs, llr_dtype=llr_dtype)
         for item in items:
             if item[0] == "op":
                 fn, level, t0 = steps[item[1]]
@@ -567,6 +638,24 @@ def build_plain_subtree(sub_spec: CodeSpec, list_size: int):
     return core_sub
 
 
+class ProgramDecoder:
+    """decode(llrs [B, N]) -> DecodeResult through `build_plain_scl_decoder`
+    on `device`: the op program in PyTorch tensor ops, with the stage
+    kernel for the l > 2 DOWN ops (`stage_kernel`) and the subtree kernel
+    for depth-1 children (`subtree`) on a CUDA device. `route` names the
+    route, for a reader of the decoder."""
+
+    def __init__(self, spec: CodeSpec, list_size: int, device: torch.device,
+                 route: str, **options):
+        self.device = device
+        self.route = route
+        self.walk = build_plain_scl_decoder(spec, list_size, **options)
+
+    def __call__(self, llrs) -> DecodeResult:
+        return self.walk(torch.as_tensor(llrs, dtype=torch.float32,
+                                         device=self.device))
+
+
 def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",
                       genie: bool = False, fast: bool = True,
                       fast_r1_scl: bool = True, llr_dtype=torch.float32,
@@ -575,10 +664,11 @@ def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",
                       subtree_backend: str = "none"):
     """Returns decode(llrs [B, N]) -> DecodeResult on `device`.
 
-    The LLRs are moved to `device`. On a CUDA device the decode runs in
-    the hand-written kernels (ops/cuda_scl.py); on the CPU in the plain
-    PyTorch version above. Raises RuntimeError when `device` is CUDA and
-    no card is present.
+    The LLRs are moved to `device`. With every knob at its default, on a
+    CUDA device the decode runs in the hand-written kernels
+    (ops/cuda_scl.py SclDecoder); on the CPU in the plain PyTorch version
+    above. Raises RuntimeError when `device` is CUDA and no card is
+    present. The decoder's `route` attribute names its route.
 
     big_stage_backend: "xla" (default) decodes in the CUDA decode kernels,
     l > 2 stages included. "pallas" (the JAX package's name, kept so its
@@ -596,31 +686,43 @@ def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",
     block's shared memory (mixed_scl32); on the CPU it equals the plain
     decoder.
 
-    The other knobs keep the JAX package's names; only their defaults are
-    ported, and any other value raises NotImplementedError.
+    genie, fast, fast_r1_scl, llr_dtype, unroll, f_mode, pm_mode: the JAX
+    package's knobs (polar_tpu/ops/scl.py build_scl_decoder; see
+    `build_plain_scl_decoder`), with its refusals: genie with a list size
+    other than 1, an unknown pm_mode or f_mode, and any non-default knob
+    with subtree_backend="pallas" raise ValueError. The decode kernels
+    take defaults only, as the Pallas ones do: a decode with any knob
+    off its default runs as the op program in PyTorch tensor ops on
+    `device`, the counterpart of the JAX package's XLA decoder, the
+    l > 2 DOWN ops as `big_stage_backend` says. This route is chosen by
+    the arguments, not by a failure.
     """
-    knobs = {"genie": (genie, False), "fast": (fast, True),
-             "fast_r1_scl": (fast_r1_scl, True),
-             "llr_dtype": (llr_dtype, torch.float32), "unroll": (unroll, True),
-             "f_mode": (f_mode, "minsum"), "pm_mode": (pm_mode, "abs")}
-    for name, (val, default) in knobs.items():
-        if val != default:
-            raise NotImplementedError(f"{name}={val!r} {_NOT_PORTED}")
+    check_knobs(list_size, genie, f_mode, pm_mode)
     if big_stage_backend not in BIG_STAGE_BACKENDS:
         raise ValueError(f"unknown big_stage_backend {big_stage_backend!r}")
     if subtree_backend not in SUBTREE_BACKENDS:
         raise ValueError(f"unknown subtree_backend {subtree_backend!r}")
+    knobs = dict(genie=genie, fast=fast, fast_r1_scl=fast_r1_scl,
+                 llr_dtype=llr_dtype, f_mode=f_mode, pm_mode=pm_mode)
+    changed = [f"{k}={v}" for k, v in dict(knobs, unroll=unroll).items()
+               if v != KNOB_DEFAULTS[k]]
+    stage = big_stage_backend == "pallas"
+    subtree = subtree_backend == "pallas"
+    if subtree and changed:
+        raise ValueError("subtree_backend='pallas' requires the "
+                         "unrolled default-mode program with "
+                         "llr_dtype=float32 (the subtree kernel "
+                         "computes in f32; a bf16 outer program "
+                         "would silently break bit-identity)")
     dev = resolve_device(device)
-    if big_stage_backend == "pallas" or subtree_backend == "pallas":
-        walk = build_plain_scl_decoder(
-            spec, list_size, stage_kernel=big_stage_backend == "pallas",
-            subtree=subtree_backend == "pallas")
-
-        def decode(llrs) -> DecodeResult:
-            return walk(torch.as_tensor(llrs, dtype=torch.float32, device=dev))
-        return decode
-    from polar_tpu_torch.ops.cuda_scl import SclDecoder
-    return SclDecoder(spec, list_size, dev)
+    if not (changed or stage or subtree):
+        from polar_tpu_torch.ops.cuda_scl import SclDecoder
+        return SclDecoder(spec, list_size, dev)
+    route = ("op program" + (", stage kernel" if stage else "")
+             + (", subtree kernel" if subtree else "")
+             + (f", knobs {' '.join(changed)}" if changed else ""))
+    return ProgramDecoder(spec, list_size, dev, route, stage_kernel=stage,
+                          subtree=subtree, **knobs)
 
 
 def build_sc_decoder(spec: CodeSpec, device="cuda"):

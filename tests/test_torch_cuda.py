@@ -658,3 +658,94 @@ def test_profile_traces_the_kernels(cuda, tmp_path, capsys):
     assert 0 < s["busy_share"] <= 1
     assert "scl_mc_counters" in s["kernels"][0]["name"]
     assert s["kernels"][0]["launches"] == 4
+
+
+# the decoder knobs: min-sum knobs are bit for bit on the card; exp/log1p
+# (f_mode="exact", pm_mode="smooth") and bfloat16 keep u, payload and
+# crc_ok, pm within allclose(rtol=1e-5, atol=1e-4). f_mode="exact" is the
+# exception for u: its f (kernels/arikan.f_exact, the JAX package's form)
+# cancels for small inputs, so its decisions follow libm's last ulp; the
+# card may differ from the CPU on as many frames as a 1-ulp change of the
+# input LLRs flips on the CPU itself, twice over, plus 1% of the frames.
+_KNOBS = [({"genie": True}, True), ({"fast": False}, True),
+          ({"fast_r1_scl": False}, True), ({"unroll": False}, True),
+          ({"f_mode": "exact"}, False), ({"pm_mode": "smooth"}, False),
+          ({"llr_dtype": torch.bfloat16}, False)]
+
+
+def _knob_close(a, b, exact, allowed=0):
+    """a decoded on the card, b on the CPU; `allowed` frames may differ in
+    u, payload or crc_ok (pm is compared on the others)."""
+    a = type(a)(*(t.cpu() for t in a))
+    if exact:
+        _equal(a, b)
+        return
+    agree = ((a.u == b.u).all(dim=1) & (a.payload == b.payload).all(dim=1)
+             & (a.crc_ok == b.crc_ok))
+    assert int((~agree).sum()) <= allowed
+    torch.testing.assert_close(a.pm[agree], b.pm[agree], rtol=1e-5, atol=1e-4)
+
+
+_KNOB_SPECS = [((2,) * 6, 24, 4, CrcSpec(8, 0x07, 0)), ((16, 2), 12, 2, None),
+               ((2, 16), 10, 1, None)]
+_KNOB_CASES = [(sp, knob, exact) for sp in _KNOB_SPECS for knob, exact in _KNOBS
+               if sp[2] == 1 or "genie" not in knob]
+
+
+@pytest.mark.parametrize("case", _KNOB_CASES,
+                         ids=[f"{sp[0]}-L{sp[2]}-{k}" for sp, k, _ in _KNOB_CASES])
+def test_knob_route_on_card_matches_cpu(cuda, case):
+    """Each knob through build_scl_decoder on the card (the op program, the
+    stage kernel for l > 2 min-sum DOWNs) == the same knob on the CPU;
+    the decode kernels K1/K2 are not launched. Genie at list size 1."""
+    from polar_tpu_torch.ops import cuda_stage
+    from polar_tpu_torch.ops.scl import ProgramDecoder
+    (factors, K, L, crc), knob, exact = case
+    N = int(np.prod(factors))
+    mask = np.ones(N, np.uint8)
+    mask[np.random.default_rng(N).permutation(N)[:K + (crc.width if crc else 0)]] = 0
+    spec = CodeSpec(N=N, K=K, factors=factors, frozen_mask=tuple(int(v) for v in mask),
+                    crc=crc)
+    x = torch.as_tensor(2.0 * np.random.default_rng(L).standard_normal((1024, N)) + 1.0,
+                        dtype=torch.float32)
+    dec = build_scl_decoder(spec, L, device=cuda, big_stage_backend="pallas", **knob)
+    ref = build_scl_decoder(spec, L, device="cpu", big_stage_backend="pallas", **knob)
+    allowed = 0
+    if "f_mode" in knob:
+        up = torch.nextafter(x, torch.full_like(x, float("inf")))
+        allowed = 2 * int((ref(x).u != ref(up).u).any(dim=1).sum()) + 11
+    assert isinstance(dec, ProgramDecoder) and "knobs" in dec.route
+    before = dict(cuda_scl.LAUNCHES)
+    k6 = cuda_stage.LAUNCHES["stage_down"]
+    out = dec(x)
+    assert cuda_scl.LAUNCHES == before
+    assert (cuda_stage.LAUNCHES["stage_down"] > k6) == (
+        any(f > 2 for f in factors) and knob.get("f_mode") != "exact")
+    _knob_close(out, ref(x), exact, allowed)
+
+
+def test_genie_bch_with_stage_kernel_matches_cpu(cuda):
+    """The genie decoder of the 16x16 eBCH code (construct_mc's decoder
+    for bch_n256) launches K6 for every i < 15 DOWN of the unclassified
+    program (15 + 16 x 15) and equals the CPU genie decode."""
+    from polar_tpu_torch.construction.montecarlo import genie_decoder
+    from polar_tpu_torch.ops import cuda_stage
+    x = 2.0 * np.random.default_rng(7).standard_normal((2048, 256)) + 1.0
+    before = cuda_stage.LAUNCHES["stage_down"]
+    out = genie_decoder((16, 16), cuda)(x)
+    assert cuda_stage.LAUNCHES["stage_down"] == before + 15 + 16 * 15
+    _knob_close(out, genie_decoder((16, 16), torch.device("cpu"))(x), exact=True)
+
+
+def test_construct_mc_on_card_matches_cpu(cuda):
+    """The same Philox keys on the card and on the CPU: leaf error counts
+    apart in at most 1 frame in 10^4 (libm's last ulp in Box-Muller)."""
+    from polar_tpu_torch.construction import montecarlo as mc
+    frames, batch = 1 << 14, 1 << 12
+    card = mc.mc_leaf_error_rates((16,), 2.0, 0.5, frames=frames, batch=batch,
+                                  device=cuda)
+    cpu = mc.mc_leaf_error_rates((16,), 2.0, 0.5, frames=frames, batch=batch,
+                                 device="cpu")
+    assert np.abs(card - cpu).max() * frames <= max(1, frames // 10_000)
+    mask = mc.construct_mc((16,), 8, 2.0, frames=frames, device=cuda)
+    assert mask.sum() == 8 and mask[15] == 0 and mask[0] == 1

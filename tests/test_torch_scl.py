@@ -152,12 +152,19 @@ def test_cpu_decoder_entry_points():
 
 
 def test_unported_options_raise():
+    """What the port does not decode raises; each decoder knob off its
+    default is decoded by the op program (tests/test_torch_knobs.py holds
+    it to JAX), genie at list size 1 only."""
     spec = spec_from_reference(_jax_spec(16, None))
     for kw in ({"genie": True}, {"fast": False}, {"unroll": False},
                {"f_mode": "exact"}, {"pm_mode": "smooth"},
                {"llr_dtype": torch.bfloat16}, {"fast_r1_scl": False}):
-        with pytest.raises(NotImplementedError):
-            t_scl.build_scl_decoder(spec, 2, device="cpu", **kw)
+        lsz = 1 if "genie" in kw else 2
+        dec = t_scl.build_scl_decoder(spec, lsz, device="cpu", **kw)
+        assert isinstance(dec, t_scl.ProgramDecoder), kw
+        assert dec.route.startswith("op program, knobs"), dec.route
+    with pytest.raises(ValueError, match="genie"):
+        t_scl.build_scl_decoder(spec, 2, device="cpu", genie=True)
     with pytest.raises(ValueError):
         t_scl.build_scl_decoder(spec, 33, device="cpu")
     with pytest.raises(ValueError):
