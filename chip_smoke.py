@@ -141,7 +141,18 @@ Phases (any failure exits non-zero):
    leaf on which the mask and the committed artifact disagree within 4
    binomial sd of the port's cut; 4,096 bch_n256 frames from the same
    Philox keys on the card and the CPU (at most 1 frame in 10^4 differs);
-   K6 timed at the genie decode's 255 launches.
+   K6 timed at the genie decode's 255 launches;
+27. independent goldens (polar_tpu_torch/records/, decisions of the C++
+   codec polar_tpu_torch/csrc/polar_ref.cpp): (a) the codec built here
+   with g++ re-records the first 8 frames of golden_c32_subtree.npz to
+   its committed decisions; (b) each record through each route of its
+   `sim/golden.py` RECORDS entry, and the two records of results/ (ca_scl
+   through K1, mixed N=512 through K1 and the K3 route), each by
+   `replay_check` with 0 mismatching frames and its route's kernel
+   launched (counts from 0 just before the replay): bch_sc L=1 (K2; the
+   hybrid, K6), bch_sc L=8 (K1), (2,)*7 L=32 (K1), (2,16,2) L=32 (K1; the
+   K3 route; the hybrid, K6); (c) each replay's wall ms and its decode's
+   ms by CUDA events (at L=1 also K2's alone).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -478,21 +489,6 @@ def fields_equal(a, b) -> tuple[bool, float]:
     return same, err
 
 
-def mixed_spec(factors, K: int, crc, seed: int = 1):
-    """A mixed-kernel spec with a cheap deterministic frozen set (index
-    order plus jitter), the kernel-processing paths being mask-independent
-    (the JAX suite's `_mixed_spec`)."""
-    from polar_tpu_torch.models.polar import CodeSpec
-
-    N = int(np.prod(factors))
-    r = np.random.default_rng(seed)
-    nk = K + (crc.width if crc else 0)
-    mask = np.ones(N, np.uint8)
-    mask[np.argsort(r.random(N) + np.linspace(0, 1, N))[-nk:]] = 0
-    return CodeSpec(N=N, K=K, factors=tuple(factors),
-                    frozen_mask=tuple(int(v) for v in mask), crc=crc)
-
-
 def stage_launch_set(spec, P: int, level: int | None = None, **knobs
                      ) -> list[tuple[int, int, int]]:
     """(i, paths, n) of every stage-kernel launch of one hybrid decode: each
@@ -547,7 +543,7 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     from polar_tpu_torch.ops.scl import (build_plain_scl_decoder,
                                          build_scl_decoder)
     from polar_tpu_torch.sim.channel import ebn0_to_sigma
-    from polar_tpu_torch.sim.golden import load_golden
+    from polar_tpu_torch.sim.golden import jittered_spec, load_golden
     from polar_tpu_torch.sim.harness import run_sweep
 
     crc8 = CrcSpec(8, 0x07, 0)
@@ -555,8 +551,8 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     sgen = torch.Generator(device=dev).manual_seed(320)
 
     # ---- 17. list capacity 32: K1, K2, K4, K5 == plain on small specs ----
-    small = [mixed_spec((2,) * 7, 56, crc8), mixed_spec((16, 2, 2), 20, crc8),
-             mixed_spec((2, 16, 2), 14, None)]
+    small = [jittered_spec((2,) * 7, 56, crc8), jittered_spec((16, 2, 2), 20, crc8),
+             jittered_spec((2, 16, 2), 14, None)]
     n17 = 0
     for sp in small:
         for lsz in (16, 32):
@@ -612,7 +608,7 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     n18 = 0
     for factors, K, crc in (((2, 2, 2, 2, 2), 12, None), ((2, 16, 2), 14, crc8),
                             ((16, 2, 2, 2), 40, crc8)):
-        sp = mixed_spec(factors, K, crc)
+        sp = jittered_spec(factors, K, crc)
         for lsz in (1, 4, 32):
             for item in subtree_items(build_program(sp, scl=lsz > 1), sp):
                 if item[0] != "sub":
@@ -826,6 +822,7 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     from polar_tpu_torch.ops.philox import step_seed
     from polar_tpu_torch.ops.scl import build_scl_decoder
     from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    from polar_tpu_torch.sim.golden import jittered_spec
     from polar_tpu_torch.sim.harness import make_mc_step, run_sweep
 
     bch = get_preset("bch_sc")
@@ -855,7 +852,7 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
                                    ((2, 16), 10, crc8, (1, 4)),
                                    ((16, 2, 2), 20, crc8, (8,))):
         for lsz in lists:
-            cases.append((f"{factors} L={lsz} B=1024", mixed_spec(factors, K, crc),
+            cases.append((f"{factors} L={lsz} B=1024", jittered_spec(factors, K, crc),
                           lsz, 1024, ("K1", "K2", "K4K5")))
     cases += [(f"bch_sc L=1 B={BATCH}", bspec, 1, BATCH, ("K2", "K4K5")),
               (f"bch_sc L=8 B={BATCH}", bspec, 8, BATCH, ("K1",))]
@@ -1278,6 +1275,65 @@ def knob_phases(dev, card, main_path) -> dict:
     return {"launches": {name: k6[name]["stage_down"] for name in k6},
             "launches_a_genie_decode": len(launches),
             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def golden_phase(dev, card) -> None:
+    """Phase 27: the independent golden records through every route."""
+    from polar_tpu_torch.ops.scl import build_scl_decoder
+    from polar_tpu_torch.sim.golden import (RECORDS, load_golden,
+                                            record_golden, record_path,
+                                            replay_check)
+
+    # ---- 27(a). the host codec built on this machine ----
+    name = "golden_c32_subtree"
+    spec, L, llrs, u_ref = load_golden(record_path(name))
+    out = ROOT / "build" / "smoke_golden_rerecord.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    u = record_golden(spec, L, llrs[:8], out)
+    print(f"golden codec: g++ build and re-record of {name} frames 0-7 "
+          f"(L={L}) in {time.perf_counter() - t:.2f} s: "
+          f"{'equal to' if np.array_equal(u, u_ref[:8]) else 'NOT equal to'} "
+          f"the committed u_ref")
+    if not np.array_equal(u, u_ref[:8]):
+        raise SystemExit(f"the host codec built here disagrees with {name}")
+
+    # ---- 27(b), (c). every record through every route of its row ----
+    cases = [(record_path(n), label, kw, kernel) for n, rec in RECORDS.items()
+             for label, kw, kernel in rec.routes]
+    k3 = dict(subtree_backend="pallas", big_stage_backend="pallas")
+    cases += [(ROOT / "results" / "golden_ca_scl_b256.npz", "default", {},
+               "scl_decode"),
+              (ROOT / "results" / "golden_mixed_scl_b128.npz", "default", {},
+               "scl_decode"),
+              (ROOT / "results" / "golden_mixed_scl_b128.npz", "subtree", k3,
+               "scl_subtree")]
+    for path, label, kw, kernel in cases:
+        zero_launches()
+        t = time.perf_counter()
+        res = replay_check(path, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        counts = {k: v for k, v in all_launches().items() if v}
+        spec, L, llrs, _ = load_golden(path)
+        dec = build_scl_decoder(spec, L, device=dev, **kw)
+        x = torch.as_tensor(np.asarray(llrs, np.float32), device=dev)
+        ms = time_ms(lambda: dec(x), iters=3, warmup=1)
+        # at L=1 the decode is K2 and the eager scl_epilogue: K2's own share
+        k2 = (f" of it scl_decode_traj_ms="
+              f"{time_ms(lambda: dec.trajectory(x), iters=3, warmup=1)}"
+              if kernel == "scl_decode_traj" else "")
+        print(f"golden replay {path.name} ({spec.factors}, L={L}) through "
+              f"{label} {kernel}: frames={res['frames']} "
+              f"mismatch_frames={res['mismatch_frames']} "
+              f"mismatch_bits={res['mismatch_bits']} launches={counts} "
+              f"replay_ms={wall_ms} decode_ms={ms}{k2} [{card}]")
+        if res["mismatch_frames"]:
+            raise SystemExit(f"golden replay mismatch: {path.name} through "
+                             f"{label}")
+        if counts.get(kernel, 0) < 1:
+            raise SystemExit(f"the {path.name} replay through {label} "
+                             f"launched no {kernel}")
 
 
 def _records(stdout: str) -> list[dict]:
@@ -1863,6 +1919,8 @@ def main() -> int:
     multi_card(dev, card)
     # ---- 26. the decoder knobs, the bfloat16 A/B and construct_mc ----
     knob_rows = knob_phases(dev, card, main_path)
+    # ---- 27. the independent golden records ----
+    golden_phase(dev, card)
     print("library: no single PyTorch call computes an SCL decode, the "
           "Monte-Carlo step, a depth-1 child's list decode or a "
           "trellis/tail-table marginal (library_ms null)")

@@ -7,6 +7,9 @@ source, the headers of csrc/ and the flags. `build_all` starts one nvcc
 for every source at once, so a fresh checkout builds in the time of the
 slowest one. The op-kind clock build of scl_decode.cu (`clock=True`,
 `-DSCL_CLOCK`) is a library of its own, built only where it is asked for.
+The host C++ golden codec (csrc/polar_ref.cpp, `build_host`) builds with
+g++ into the same directory, keyed by a hash of its source and flags; it
+is not one of `SOURCES`.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 CLOCK_FLAG = "-DSCL_CLOCK"
 SOURCES = ("scl_decode.cu", "stage_down.cu")
+# g++ flags of the host codec: those of native/build.sh
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-fopenmp", "-std=c++17"]
 
 # build label (source name, + CLOCK_FLAG for the clock build) ->
 # {"seconds", "ptxas", "library"} of its last build or load
@@ -102,3 +107,31 @@ def build_all(clock: bool = False) -> dict:
     procs = [(name, c, _start(name, c)) for name, c in jobs]
     return {_label(name, c): _finish(name, proc, t0, c)
             for name, c, proc in procs}
+
+
+def host_library_path(name: str) -> pathlib.Path:
+    key = hashlib.sha256((CSRC / name).read_bytes()
+                         + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{pathlib.Path(name).stem}_{key}.so"
+
+
+def build_host(name: str) -> pathlib.Path:
+    """The library of host C++ source `name` (csrc/), built with g++ and
+    `HOST_FLAGS` if missing. Raises RuntimeError without g++ or when the
+    build fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name} is built with the host "
+                           "C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    res = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / name)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ {name} failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    os.replace(tmp, out)
+    return out

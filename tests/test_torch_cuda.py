@@ -749,3 +749,38 @@ def test_construct_mc_on_card_matches_cpu(cuda):
     assert np.abs(card - cpu).max() * frames <= max(1, frames // 10_000)
     mask = mc.construct_mc((16,), 8, 2.0, frames=frames, device=cuda)
     assert mask.sum() == 8 and mask[15] == 0 and mask[0] == 1
+
+
+def _golden_routes():
+    from polar_tpu_torch.sim.golden import RECORDS
+    return [(name, label, kw, kernel) for name, rec in RECORDS.items()
+            for label, kw, kernel in rec.routes]
+
+
+def _launches(kernel):
+    from polar_tpu_torch.ops import cuda_stage
+    return {**cuda_scl.LAUNCHES, **cuda_stage.LAUNCHES}[kernel]
+
+
+@pytest.mark.parametrize("name,route,kw,kernel", _golden_routes(),
+                         ids=[f"{n}-{r}" for n, r, _, _ in _golden_routes()])
+def test_golden_record_replays_on_card(cuda, name, route, kw, kernel):
+    """Each record of polar_tpu_torch/records/ (the independent C++
+    decoder's decisions) through each of its routes on the card: 0
+    mismatching frames, and the route's kernel launched."""
+    from polar_tpu_torch.sim.golden import RECORDS, record_path, replay_check
+    before = _launches(kernel)
+    res = replay_check(record_path(name), device=cuda, **kw)
+    assert res == {"frames": RECORDS[name].frames, "mismatch_frames": 0,
+                   "mismatch_bits": 0}
+    assert _launches(kernel) > before
+
+
+def test_host_codec_built_here_equals_committed_record(cuda, tmp_path):
+    """The C++ codec built with this machine's g++ re-records the first 8
+    frames of golden_c32_subtree.npz to the committed decisions."""
+    from polar_tpu_torch.sim.golden import (load_golden, record_golden,
+                                            record_path)
+    spec, L, llrs, u_ref = load_golden(record_path("golden_c32_subtree"))
+    u = record_golden(spec, L, llrs[:8], tmp_path / "again.npz")
+    assert np.array_equal(u, u_ref[:8])

@@ -5,6 +5,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,8 @@ def _modules():
 def test_import_leaves_no_jax_or_polar_tpu():
     mods = _modules()
     assert {"polar_tpu_torch.ops.cuda_scl", "polar_tpu_torch.parallel.mesh",
-            "polar_tpu_torch.entry"} <= set(mods) and len(mods) >= 20
+            "polar_tpu_torch.entry", "polar_tpu_torch.oracle",
+            "polar_tpu_torch.native"} <= set(mods) and len(mods) >= 20
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -45,6 +47,58 @@ def test_sources_import_no_jax_or_polar_tpu():
     assert _IMPORT.search("import jax.numpy as jnp")
     assert not _IMPORT.search("from polar_tpu_torch.ops import scl")
     assert not _IMPORT.search("# counterpart of polar_tpu/ops/scl.py")
+
+
+def test_native_codec_never_touches_native_dir(monkeypatch):
+    """The port's golden codec builds from polar_tpu_torch/csrc/ into
+    build/ and loads from there: it opens, runs and loads nothing under
+    native/ (the JAX package's codec and its library)."""
+    import ctypes
+    import importlib
+    import os
+
+    from polar_tpu_torch.models.presets import bch_sc
+    from polar_tpu_torch.ops import cuda_build
+
+    native_dir = ROOT / "native"
+    lib = native_dir / "libpolar_ref.so"
+    before = (lib.stat().st_mtime_ns, sorted(p.name for p in native_dir.iterdir()))
+    touched = []
+    real_run, real_cdll, real_open = subprocess.run, ctypes.CDLL, open
+
+    def watch(*paths):
+        touched.extend(str(p) for p in paths if "native" in str(p).split(os.sep))
+
+    def run(cmd, *a, **k):
+        watch(*cmd)
+        return real_run(cmd, *a, **k)
+
+    def cdll(path, *a, **k):
+        watch(path)
+        return real_cdll(path, *a, **k)
+
+    def opener(path, *a, **k):
+        watch(path)
+        return real_open(path, *a, **k)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(ctypes, "CDLL", cdll)
+    monkeypatch.setattr("builtins.open", opener)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", ROOT / "build" / "hygiene_host")
+    from polar_tpu_torch import native
+    native = importlib.reload(native)
+    spec = bch_sc().spec
+    g = native.NativeGolden(spec)
+    assert g.encode(np.zeros((1, spec.N), np.uint8)).sum() == 0
+    assert touched == []
+    loaded = cuda_build.host_library_path(native.SOURCE)
+    assert loaded.parent == ROOT / "build" / "hygiene_host" and loaded.exists()
+    # nor does its source name that directory as a path
+    assert not re.search(r"""["'/]native["'/]""",
+                         (PKG / "native.py").read_text().replace(
+                             "native/polar_ref.cpp", ""))
+    after = (lib.stat().st_mtime_ns, sorted(p.name for p in native_dir.iterdir()))
+    assert after == before
 
 
 def test_default_device_raises_without_card():
