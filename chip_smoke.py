@@ -19,7 +19,8 @@ Phases (any failure exits non-zero):
 1. device: name, count, nvidia-smi name and power limit;
 2. build: one nvcc a source, and one for the op-kind clock build of
    scl_decode.cu (phase 23), all started together; seconds, ptxas's
-   registers and spills of each instance, threads a block;
+   registers and spills of each instance (a capacity-32 instance that
+   spills fails), threads a block;
 3. golden replay: results/golden_ca_scl_b256.npz (256 frames recorded
    from the independent C++ decoder) through scl_decode, 0 mismatches;
 4. scl_decode == plain PyTorch version on the card, bit for bit (u,
@@ -76,18 +77,23 @@ Phases (any failure exits non-zero):
    K2, K4, K5 (L=1), and K6 as the 105 launches of one hybrid decode, each
    with its plain version and bound; the hybrid decode's own time;
 17. list capacity 32: K1, K2, K4, K5 == plain bit for bit at L = 16 and 32
-   on small Arikan and mixed specs; K1 and K2 timed at L=32, B=8192;
+   on small Arikan and mixed specs, on Gaussian LLRs and noise and on huge
+   ones (+-1e30, 4e30, one +-inf a codeword on the Arikan spec; noise
+   1e32); K1 and K2 timed at L=32, B=8192;
 18. the subtree kernel scl_subtree (K3, one depth-1 child a launch) ==
    its plain version bit for bit on every child of small Arikan and mixed
-   specs at L = 1, 4, 32, on path-bound inputs with diverged metrics;
+   specs at L = 1, 4, 32, on path-bound inputs with diverged metrics:
+   Gaussian, integer (tied metrics and inputs) and huge (+-1e30, 4e30,
+   on sorted metrics);
 19. mixed_scl32 (N=4096 = 16 x 16 x 2^4, K=2048 + CRC-16, L=32; BASELINE
    config 4): K6 == plain bit for bit at its outer launches' shapes, (P,
    n, B) = (1, 256, 256) and (32, 256, 256), every i < 15; at the
    preset's batch 256 and 1.25 dB: one decode through the
    K3 route (`subtree_backend="pallas"`, `big_stage_backend="pallas"`)
    launches 13 K3 and 15 K6; K3 == plain on the 13 children's inputs
-   captured from it; the route == the hybrid without K3 == the plain route
-   (u, payload, crc_ok, pm);
+   captured from it, and holds 2 blocks an SM on each (occupancy API);
+   the route == the hybrid without K3 == the plain route (u, payload,
+   crc_ok, pm);
 20. results/golden_mixed_scl_b128.npz (128 frames of N=512, (16,2,2,2,2,2),
    L=8, from the independent C++ decoder) through K1 and the K3 route,
    0 mismatches;
@@ -101,11 +107,15 @@ Phases (any failure exits non-zero):
    size: L=8 (K1) > L=16 (K1, capacity 32) > L=32 (the K3 route);
 22. times at mixed_scl32, B=256 and 2048: the 13 K3 launches, the 15 outer
    K6 launches (each with plain version and bound) and the whole decode
-   through the K3 route and through the hybrid;
-23. the op-kind split of K5 and K1 at ca_scl, B=8192, and of K3 on the
-   13 children of one mixed_scl32 decode (B=256), through the op-kind
-   clock build of scl_decode.cu (-DSCL_CLOCK, sim/kernel_times.py
-   `split`): cycles a block by op kind, the l > 2 DOWN ops by method;
+   through the K3 route and through the hybrid; K3 == plain on the 13
+   children's inputs captured at B=2048;
+23. the op-kind split of K5 and K1 at ca_scl, B=8192, of K1 at L=32 on
+   (2,)*7 and (16,2,2), B=8192, and of K3 on the 13 children of one
+   mixed_scl32 decode (B=256), through the op-kind clock build of
+   scl_decode.cu (-DSCL_CLOCK, sim/kernel_times.py `split`): cycles a
+   block by op kind, the l > 2 DOWN ops by method, the R1/SPC fork
+   rounds a block (the clock's count == the op program's) and the
+   chain's cycles a round;
 24. the sweep's fetch and its trace: the fetch of call n returns while
    call n+1 (~50 ms of torch.cuda._sleep) still runs; `sweep_cli
    --profile` over a short steady window of the ca_scl fused sweep (K5),
@@ -164,6 +174,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -247,6 +258,20 @@ def zero_launches() -> None:
     for counts in (cuda_scl.LAUNCHES, cuda_stage.LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def huge_values(x: np.ndarray, rng, inf: bool) -> np.ndarray:
+    """x with ~30% of its entries at +-1e30 (the selection's kBig), 5% at
+    +-4e30 and, if `inf`, one +-inf a row (Arikan specs only: an l > 2
+    marginal of an infinite input gives inf - inf)."""
+    pick = rng.random(x.shape)
+    x = np.where(pick < 0.3, np.sign(x) * 1e30, x)
+    x = np.where((pick > 0.3) & (pick < 0.35), np.sign(x) * 4e30, x)
+    if inf:
+        rows = x.reshape(-1, x.shape[-1])
+        rows[np.arange(rows.shape[0]), rng.integers(0, x.shape[-1], rows.shape[0])] = (
+            np.inf * np.sign(rng.standard_normal(rows.shape[0])))
+    return x
 
 
 def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
@@ -556,30 +581,37 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     n17 = 0
     for sp in small:
         for lsz in (16, 32):
-            what = f"{sp.factors} L={lsz} B={SMALL_BATCH}"
-            x = torch.as_tensor(2.0 * rng.standard_normal((SMALL_BATCH, sp.N)) + 0.5,
-                                dtype=torch.float32, device=dev)
-            d1 = SclDecoder(sp, lsz, dev, select=True)
-            check("scl_decode", what, tuple(d1.kernel(x)), tuple(d1.plain(x)))
-            d2 = SclDecoder(sp, lsz, dev, select=False)
-            traj = d2.trajectory(x)
-            check("scl_decode_traj", what, traj, d2.plain_trajectory(x))
-            check("scl_decode_traj", what + " epilogue", tuple(d2.epilogue(*traj)),
-                  tuple(d2.plain(x)))
-            step = build_mc_step(sp, lsz, device=dev)
-            noise = torch.randn((SMALL_BATCH, sp.N), generator=sgen, device=dev)
-            seed = tuple(int(w) for w in rng.integers(0, 2**32, 2))
-            check("scl_mc_traj", what + " noise in",
-                  step.trajectory(seed, 0.8, SMALL_BATCH, noise),
-                  step.plain_trajectory(seed, 0.8, SMALL_BATCH, noise))
-            check("scl_mc_counters", what + " noise in",
-                  [step.counts(seed, 0.8, SMALL_BATCH, noise)],
-                  [step.plain_counts(seed, 0.8, SMALL_BATCH, noise)])
-            n17 += 1
+            for kind in ("gauss", "huge"):
+                what = f"{sp.factors} L={lsz} B={SMALL_BATCH} {kind}"
+                v = 2.0 * rng.standard_normal((SMALL_BATCH, sp.N)) + 0.5
+                g = rng.standard_normal((SMALL_BATCH, sp.N))
+                if kind == "huge":
+                    v = huge_values(v, rng, inf=set(sp.factors) == {2})
+                    g = np.where(rng.random(g.shape) < 0.3, 1e32, g)
+                x = torch.as_tensor(v, dtype=torch.float32, device=dev)
+                d1 = SclDecoder(sp, lsz, dev, select=True)
+                check("scl_decode", what, tuple(d1.kernel(x)), tuple(d1.plain(x)))
+                d2 = SclDecoder(sp, lsz, dev, select=False)
+                traj = d2.trajectory(x)
+                check("scl_decode_traj", what, traj, d2.plain_trajectory(x))
+                check("scl_decode_traj", what + " epilogue", tuple(d2.epilogue(*traj)),
+                      tuple(d2.plain(x)))
+                step = build_mc_step(sp, lsz, device=dev)
+                noise = torch.as_tensor(g, dtype=torch.float32, device=dev)
+                seed = tuple(int(w) for w in rng.integers(0, 2**32, 2))
+                check("scl_mc_traj", what + " noise in",
+                      step.trajectory(seed, 0.8, SMALL_BATCH, noise),
+                      step.plain_trajectory(seed, 0.8, SMALL_BATCH, noise))
+                check("scl_mc_counters", what + " noise in",
+                      [step.counts(seed, 0.8, SMALL_BATCH, noise)],
+                      [step.plain_counts(seed, 0.8, SMALL_BATCH, noise)])
+                n17 += 1
     torch.cuda.synchronize()
     print(f"capacity 32: scl_decode, scl_decode_traj, scl_mc_traj, "
-          f"scl_mc_counters == plain bit for bit on {n17} spec x L cases "
-          f"((2,)*7 CRC-8, (16,2,2) CRC-8, (2,16,2); L = 16, 32; B={SMALL_BATCH})")
+          f"scl_mc_counters == plain bit for bit on {n17} spec x L x kind cases "
+          f"((2,)*7 CRC-8, (16,2,2) CRC-8, (2,16,2); L = 16, 32; Gaussian and "
+          f"huge: +-1e30, 4e30, one +-inf a codeword on (2,)*7, noise 1e32; "
+          f"B={SMALL_BATCH})")
     for sp in small[:2]:
         x = torch.as_tensor(2.0 * rng.standard_normal((BATCH, sp.N)) + 1.0,
                             dtype=torch.float32, device=dev)
@@ -617,13 +649,19 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
                 lam = 2.5 * torch.randn((lsz, core.spec.N, SMALL_BATCH), generator=sgen,
                                         device=dev)
                 pm = 3.0 * torch.rand((lsz, SMALL_BATCH), generator=sgen, device=dev)
-                check("scl_subtree", f"{factors} L={lsz} child t0={item[1]}",
-                      core.kernel(lam, pm), core.plain(lam, pm))
-                n18 += 1
+                big = torch.as_tensor(huge_values(lam.cpu().numpy(), rng, inf=False),
+                                      device=dev)
+                for kind, x, m in (("gauss", lam, pm),
+                                   ("tied", torch.round(lam), torch.round(pm)),
+                                   ("huge", big, pm.sort(dim=0).values)):
+                    check("scl_subtree", f"{factors} L={lsz} child t0={item[1]} {kind}",
+                          core.kernel(x, m), core.plain(x, m))
+                    n18 += 1
     torch.cuda.synchronize()
-    print(f"scl_subtree == plain: {n18} children bit-exact (Arikan (2,2,2,2,2), "
-          f"mixed (2,16,2) and (16,2,2,2); L = 1, 4, 32; B={SMALL_BATCH}; path-bound "
-          f"input, diverged metrics), max_abs_err={err['scl_subtree']}")
+    print(f"scl_subtree == plain: {n18} child x kind cases bit-exact (Arikan "
+          f"(2,2,2,2,2), mixed (2,16,2) and (16,2,2,2); L = 1, 4, 32; B={SMALL_BATCH}; "
+          f"path-bound input, diverged metrics: Gaussian, integer with ties, huge "
+          f"(+-1e30, 4e30) on sorted metrics), max_abs_err={err['scl_subtree']}")
 
     # ---- 19. mixed_scl32: the K3 route, the hybrid and the plain route ----
     mixed = get_preset("mixed_scl32")
@@ -680,6 +718,11 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     for core, lam1, pm in calls:
         check("scl_subtree", f"mixed_scl32 child N={core.spec.N} K={core.spec.K}",
               core.kernel(lam1, pm), core.plain(lam1, pm))
+    occupancy = {core.kernels.blocks_per_sm("scl_subtree", dev) for core, _, _ in calls}
+    print(f"scl_subtree blocks an SM (occupancy API) on the {len(calls)} children: "
+          f"{sorted(occupancy)}")
+    if occupancy != {2}:
+        raise SystemExit(f"scl_subtree holds {sorted(occupancy)} blocks an SM, not 2")
     out_h = hybrid(llr)
     out_p = plain(llr)
     for other, name in ((out_h, "the hybrid"), (out_p, "the plain route")):
@@ -780,6 +823,12 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
         else:
             rows["scl_subtree"]["ms" + tag] = r["ms"]
             rows["scl_subtree"]["bound_ms" + tag] = r["bound_ms"]
+            for core, lam1, pm in calls:
+                check("scl_subtree", f"mixed_scl32 child N={core.spec.N} "
+                      f"K={core.spec.K} B={b}", core.kernel(lam1, pm),
+                      core.plain(lam1, pm))
+            print(f"scl_subtree == plain on all {len(calls)} children at B={b} "
+                  f"(inputs captured from the decode)")
         print(f"time: scl_subtree mixed_scl32 L=32, the {len(calls)} launches of "
               f"a decode, B={b} ms={r['ms']} plain_ms={r.get('plain_ms')} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}: bytes={r['bytes']} "
@@ -1491,6 +1540,10 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else "?"
             if "registers" in line or "spill" in line:
                 print(f"ptxas: {entry}: {line.strip()}")
+            if "_c32" in entry and any(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                                   line)):
+                raise SystemExit(f"ptxas: the capacity-32 instance {entry} "
+                                 f"spills: {line.strip()}")
     print(f"threads a block: Arikan capacity-8 instances (scl_decode, "
           f"scl_decode_traj, scl_mc_traj, scl_mc_counters; 2x2 kernels, L <= 8) "
           f"{lib.scl_block_threads(3, 8, 0)}; l > 2, capacity 32 and scl_subtree "
@@ -1886,7 +1939,7 @@ def main() -> int:
     mixed_rows = mixed_phases(dev, card, rng, check, err, main_path, rows,
                               main_launches)
 
-    # ---- 23. the op-kind split of K5 and K1 at ca_scl and of K3 at mixed_scl32 ----
+    # ---- 23. the op-kind split: K5, K1 at ca_scl, K1 at L=32, K3 at mixed_scl32 ----
     from polar_tpu_torch.sim.kernel_times import split
     split(BATCH, dev, card)
 

@@ -35,9 +35,10 @@
 //
 // List capacity: every kernel has an instance for P <= 8 and one for
 // P <= 32 (template CAP), chosen at launch. Capacity 8 ranks the 2P fork
-// candidates one a lane and keeps the R1/SPC minima's positions in
-// registers; capacity 32 ranks two candidates a lane (c = lane, lane + 32)
-// and reads the positions back from shared memory, with a ~10 KB `Small`.
+// candidates one a lane by shuffles and keeps the R1/SPC minima's
+// positions in registers. Capacity 32 (K3 `scl_subtree_c32`, replacing
+// pallas_scl.py `core_sub`, and K1, K2, K4, K5 at 8 < L <= 32) was
+// redesigned for Hopper; its note is above `fork_table`.
 //
 // The subtree kernel's stage-1 DOWNs read row netmap[p] of the input
 // block: netmap, one more P-byte map after the stage maps, starts as the
@@ -184,11 +185,14 @@ enum Output { kSelect = 0, kTrajectory = 1, kCounters = 2, kSubtree = 3 };
 // others). ops/cuda_scl.py CLOCK_SLOTS names the slots in this order.
 // kClkDown is the 2x2 f/g DOWN; an l > 2 DOWN (`big_down`) goes to the
 // slot of its input's method: the last input's single correlation, the
-// syndrome trellis or the tail table.
+// syndrome trellis or the tail table. kClkRounds is a count, not cycles:
+// the R1/SPC fork rounds the block ran (kClkChain / kClkRounds: cycles a
+// round).
 enum ClockSlot {
   kClkSetup = 0, kClkPrologue, kClkDown, kClkUp, kClkR0, kClkRepSums,
   kClkRepFork, kClkSelect, kClkChain, kClkDecide, kClkPerm, kClkInverse,
-  kClkBigLast, kClkBigTrellis, kClkBigTable, kClkEpilogue, kClkSlots
+  kClkBigLast, kClkBigTrellis, kClkBigTable, kClkEpilogue, kClkRounds,
+  kClkSlots
 };
 #ifdef SCL_CLOCK
 constexpr int kClockBlocks = 128;
@@ -208,6 +212,9 @@ __device__ __forceinline__ void clk_mark(int slot) {
     clk_last = now;
   }
 }
+__device__ __forceinline__ void clk_count(int slot, int n) {
+  if (threadIdx.x == 0) clk_acc[slot] += (unsigned long long)n;
+}
 __device__ __forceinline__ void clk_end() {
   clk_mark(kClkEpilogue);
   if (threadIdx.x == 0 && blockIdx.x < kClockBlocks) {
@@ -218,6 +225,7 @@ __device__ __forceinline__ void clk_end() {
 #else
 __device__ __forceinline__ void clk_begin() {}
 __device__ __forceinline__ void clk_mark(int) {}
+__device__ __forceinline__ void clk_count(int, int) {}
 __device__ __forceinline__ void clk_end() {}
 #endif
 
@@ -228,9 +236,23 @@ __host__ __device__ constexpr int maps_per_thread(int cap) {
   return cap <= 8 ? 2 : 8;
 }
 
+// The capacity-32 fork table and one-pass selection state (none at
+// capacity 8: an empty base takes no space).
+template <int CAP>
+struct ForkTable {};
+
+template <>
+struct ForkTable<32> {
+  float4 cand[16];                 // candidate slot s = bit * 32 + p; NaN for p >= P
+  float spm[32];                   // fork survivors' metrics, by rank
+  unsigned par[32];                // SPC parity per path, 0 between nodes
+  unsigned char src[32];           // fork survivors' slots, by rank
+  unsigned char rstar[32];         // inputs below kBig per path (<= n_min)
+};
+
 // The node-local state of a list capacity CAP (P <= CAP).
 template <int CAP>
-struct Small {
+struct Small : ForkTable<CAP> {
   static constexpr int kRounds = CAP + 1;   // SPC extracts up to P + 1 minima
   float pm[CAP];
   float vals[kRounds][CAP];        // least-reliable |llr| per round, path
@@ -282,13 +304,12 @@ __device__ float warp_tree_sum(const float* v, int n, int positive, int lane) {
 }
 
 // count smallest |v[j]| (j < n) with positions, ascending, ties to the
-// lowest index; an already chosen position counts as kBig. Whole warp.
-// Capacity 8 keeps the chosen positions in registers (the rounds
-// unrolled), capacity 32 reads them back from sm.poss.
-template <int CAP>
+// lowest index; an already chosen position counts as kBig. Whole warp,
+// capacity 8 (capacity 32 selects in one pass, `select_rank`): the chosen
+// positions stay in registers (the rounds unrolled).
 __device__ void warp_extract(const float* v, int n, int count, int lane,
-                             Small<CAP>& sm, int p) {
-  constexpr int kRounds = Small<CAP>::kRounds;
+                             Small<8>& sm, int p) {
+  constexpr int kRounds = Small<8>::kRounds;
   auto pick = [&](float& bv, int& bi) {
 #pragma unroll
     for (int off = 16; off >= 1; off >>= 1) {
@@ -297,95 +318,209 @@ __device__ void warp_extract(const float* v, int n, int count, int lane,
       if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
     }
   };
-  if constexpr (CAP <= 8) {
-    int chosen[kRounds];
+  int chosen[kRounds];
 #pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      if (r < count) {
-        float bv = __int_as_float(0x7f800000);   // +inf
-        int bi = 0x7fffffff;
-        for (int j = lane; j < n; j += 32) {
-          float val = fabsf(v[j]);
-#pragma unroll
-          for (int c = 0; c < kRounds; ++c)
-            if (c < r && chosen[c] == j) val = kBig;
-          if (val < bv) { bv = val; bi = j; }
-        }
-        pick(bv, bi);
-        chosen[r] = bi;
-        if (lane == 0) { sm.vals[r][p] = bv; sm.poss[r][p] = (short)bi; }
-      }
-    }
-  } else {
-    for (int r = 0; r < count; ++r) {
+  for (int r = 0; r < kRounds; ++r) {
+    if (r < count) {
       float bv = __int_as_float(0x7f800000);   // +inf
       int bi = 0x7fffffff;
       for (int j = lane; j < n; j += 32) {
         float val = fabsf(v[j]);
-        for (int c = 0; c < r; ++c)
-          if (sm.poss[c][p] == j) val = kBig;
+#pragma unroll
+        for (int c = 0; c < kRounds; ++c)
+          if (c < r && chosen[c] == j) val = kBig;
         if (val < bv) { bv = val; bi = j; }
       }
       pick(bv, bi);
+      chosen[r] = bi;
       if (lane == 0) { sm.vals[r][p] = bv; sm.poss[r][p] = (short)bi; }
-      __syncwarp();
     }
   }
 }
 
-// 2P -> P fork, warp 0, all 32 lanes. Lane p < P holds path p's metric and
-// penalties. Lane r < P gets survivor r: metric, parent path, bit.
-// Candidate c = bit * P + p ranks by (metric, c); capacity 8 holds one
-// candidate a lane (2P <= 16), capacity 32 two (c = lane, lane + 32).
-template <int CAP>
+// 2P -> P fork, warp 0, all 32 lanes, capacity 8 (2P <= 16: a candidate a
+// lane; capacity 32 forks from a table, `fork_table`). Lane p < P holds
+// path p's metric and penalties. Lane r < P gets survivor r: metric,
+// parent path, bit. Candidate c = bit * P + p ranks by (metric, c).
 __device__ void fork2(int lane, int P, float pm_p, float pen0_p, float pen1_p,
                       float& npm, int& nperm, int& nbit) {
-  if constexpr (CAP <= 8) {
-    const int c = lane;
-    const int p = c % P;
-    const int b = c / P;
-    const float vpm = __shfl_sync(kFull, pm_p, p);
-    const float v0 = __shfl_sync(kFull, pen0_p, p);
-    const float v1 = __shfl_sync(kFull, pen1_p, p);
-    const float cand = b ? (vpm + v1) : (vpm + v0);
-    int rank = 0;
-    for (int c2 = 0; c2 < 2 * P; ++c2) {
-      const float o = __shfl_sync(kFull, cand, c2);
-      rank += (o < cand) || (o == cand && c2 < c);
-    }
-    if (c >= 2 * P) rank = 64;
-    npm = 0.f; nperm = 0; nbit = 0;
-    for (int c2 = 0; c2 < 2 * P; ++c2) {
-      const int rk = __shfl_sync(kFull, rank, c2);
-      const float o = __shfl_sync(kFull, cand, c2);
-      if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
-    }
+  const int c = lane;
+  const int p = c % P;
+  const int b = c / P;
+  const float vpm = __shfl_sync(kFull, pm_p, p);
+  const float v0 = __shfl_sync(kFull, pen0_p, p);
+  const float v1 = __shfl_sync(kFull, pen1_p, p);
+  const float cand = b ? (vpm + v1) : (vpm + v0);
+  int rank = 0;
+  for (int c2 = 0; c2 < 2 * P; ++c2) {
+    const float o = __shfl_sync(kFull, cand, c2);
+    rank += (o < cand) || (o == cand && c2 < c);
+  }
+  if (c >= 2 * P) rank = 64;
+  npm = 0.f; nperm = 0; nbit = 0;
+  for (int c2 = 0; c2 < 2 * P; ++c2) {
+    const int rk = __shfl_sync(kFull, rank, c2);
+    const float o = __shfl_sync(kFull, cand, c2);
+    if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
+  }
+}
+
+// ---- list capacity 32 (P <= 32): the fork table and one-pass selection ----
+//
+// The op-kind clock (kernel_times --split, PERF.md) put 55.5% of K3's
+// block time in the R1/SPC fork chains and 9.7% in the least-reliable
+// selection, ~17k cycles a fork round: the old fork ranked two candidates
+// a lane by 2P shuffles, scattered them by 4P more, divided by a run-time
+// P in both loops, and warp 0 ran the rounds while 7 warps waited; each
+// selection round re-read every earlier position (O(count^2) a path). A
+// mixed_scl32 decode runs ~134 rounds a child, every R1/SPC node there
+// has n <= 16.
+// This design keeps every survivor, its order and every metric bit for bit
+// (lax.top_k's order: ties to the lower candidate c = bit * P + p):
+// - The candidates go to a table in shared memory at slot s = bit * 32 + p
+//   (NaN where p >= P, set once: NaN is never before anything). s orders
+//   as c does, so ties need no division; a survivor's parent and bit are
+//   s & 31 and s >> 5. Each lane ranks its two slots against the table by
+//   broadcast 16-byte reads and scatters the survivors by rank
+//   (`fork_table`), as the Arikan capacity-8 body's `fork_rank` does.
+// - Where pm is sorted (the TPU kernel's `fork2_sorted`, pallas_scl.py
+//   :691-738), the keep half A = pm + 0 is in order already: rank_A = p +
+//   #{B < A[p]} and rank_B = #{A <= B[p]} (a binary search in A) + B's
+//   rank among itself, half the compares. `pm_sorted` follows the TPU
+//   kernel's rules: true at the decode's start ([0, kBig, ...]) and after
+//   every fork; false for K3's path-bound pm_in, after R0, a frozen leaf,
+//   and for SPC's first round, which follows the parity fix.
+// - Selection is one pass over the block (`select_rank`): each input's
+//   rank by (|v|, j) in its path, ranks < n_min give the positions in
+//   order, the rule at kBig (`rstar`) as in the Arikan capacity-8 body.
+//   Small blocks share a warp between paths. It costs n compares an input
+//   (n^2 a path), which suits the n <= 16 of the target codes.
+// - Decisions keep the loop over the rounds for every input: the parent's
+//   clock put them at 0.4% of K3 (PERF.md).
+// - The rank loops read one 16-byte table entry a step (`unroll 1`):
+//   unrolled fully, the 64 floats stay live together, and the l > 2
+//   capacity-32 instances spilled 20-64 B at their 128 registers; 1, 2
+//   and 4 entries a step timed alike on an H100 (PERF.md).
+// - One warp runs the chain. A round measured ~2.6k cycles, of which the
+//   compares are a few hundred; two warps ranking half the table each
+//   would halve those behind two named barriers a round. Not taken.
+// What bounds the capacity-32 instances stays latency: a round is a
+// dependent chain (penalty gather, table, rank, scatter, survivors) in one
+// warp, and 2 blocks an SM hide little of it.
+
+// The fork from the table, warp 0, all lanes: lanes p < P have written
+// their candidates (slot p: keep, 32 + p: the other bit) before the call.
+// Lane r < P gets survivor r: metric, parent path, bit. `sorted`: the keep
+// half is in order (value, then p).
+__device__ __forceinline__ void fork_table(ForkTable<32>& ft, int lane, int P,
+                                           bool sorted, float& npm, int& nperm,
+                                           int& nbit) {
+  __syncwarp();
+  const float* cf = reinterpret_cast<const float*>(ft.cand);
+  const float va = cf[lane], vb = cf[32 + lane];
+  int ra = 0, rb = 0;
+  if (sorted) {
+    // rank_A = p + #{B[j] < A[p]}; rank_B = #{A[j] <= B[p]} + #{B before B[p]}
+    ra = lane;
+    int k = 0;
+#pragma unroll
+    for (int step = 32; step >= 1; step >>= 1)
+      if (k + step <= P && cf[k + step - 1] <= vb) k += step;
+    rb = k;
   } else {
-    const float vpm = __shfl_sync(kFull, pm_p, lane % P);
-    const float v0 = __shfl_sync(kFull, pen0_p, lane % P);
-    const float v1 = __shfl_sync(kFull, pen1_p, lane % P);
-    // the candidate c = lane + 32 is path (lane + 32) % P
-    const int p_hi = (lane + 32) % P;
-    const float wpm = __shfl_sync(kFull, pm_p, p_hi);
-    const float w0 = __shfl_sync(kFull, pen0_p, p_hi);
-    const float w1 = __shfl_sync(kFull, pen1_p, p_hi);
-    const float cand_lo = (lane / P) ? (vpm + v1) : (vpm + v0);
-    const float cand_hi = ((lane + 32) / P) ? (wpm + w1) : (wpm + w0);
-    int rank_lo = 0, rank_hi = 0;
-    for (int c2 = 0; c2 < 2 * P; ++c2) {
-      // c2 < 32 lives in cand_lo, c2 >= 32 in cand_hi (warp-uniform)
-      const float o = __shfl_sync(kFull, c2 < 32 ? cand_lo : cand_hi, c2 & 31);
-      rank_lo += (o < cand_lo) || (o == cand_lo && c2 < lane);
-      rank_hi += (o < cand_hi) || (o == cand_hi && c2 < lane + 32);
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) {
+      const float4 o4 = ft.cand[i];
+      const float o[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int s = 4 * i + k;
+        ra += (o[k] < va) || (o[k] == va && s < lane);
+        rb += o[k] <= vb;
+      }
     }
-    // not a candidate: a rank no lane has
-    if (lane >= 2 * P) rank_lo = 1 << 20;
-    if (lane + 32 >= 2 * P) rank_hi = 1 << 20;
-    npm = 0.f; nperm = 0; nbit = 0;
-    for (int c2 = 0; c2 < 2 * P; ++c2) {
-      const int rk = __shfl_sync(kFull, c2 < 32 ? rank_lo : rank_hi, c2 & 31);
-      const float o = __shfl_sync(kFull, c2 < 32 ? cand_lo : cand_hi, c2 & 31);
-      if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
+  }
+#pragma unroll 1
+  for (int i = 8; i < 16; ++i) {
+    const float4 o4 = ft.cand[i];
+    const float o[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int s = 4 * (i - 8) + k;
+      ra += o[k] < va;
+      rb += (o[k] < vb) || (o[k] == vb && s < lane);
+    }
+  }
+  if (lane < P) {
+    if (ra < P) { ft.spm[ra] = va; ft.src[ra] = (unsigned char)lane; }
+    if (rb < P) { ft.spm[rb] = vb; ft.src[rb] = (unsigned char)(32 + lane); }
+  }
+  __syncwarp();
+  npm = 0.f; nperm = 0; nbit = 0;
+  if (lane < P) {
+    const int s = ft.src[lane];
+    npm = ft.spm[lane];
+    nperm = s & 31;
+    nbit = s >> 5;
+  }
+}
+
+// The R1/SPC selection of capacity 32, the whole block: each input's rank
+// by (|v|, j) among its path's n inputs; ranks < n_min give the least
+// reliable positions and |v| in order (== extract_mins' rounds wherever
+// every |v| < kBig; the chain's head applies `rstar` for the rest); and
+// the signs' parity a path (SPC) into ft.par.
+__device__ void select_rank(const float* L, int P, int n, int ln, int n_min,
+                            bool spc, Small<32>& sm, int tid, int lane,
+                            int warp) {
+  const int E = P * n;
+  const int cw = (E + 31) >> 5;
+  for (int base = warp * 32; base < cw * 32; base += kThreads) {
+    const int e = base + lane;
+    const bool in = e < E;
+    const float v = in ? L[e] : 0.f;
+    if (in && n_min > 0) {
+      const int p = e >> ln, j = e & (n - 1);
+      const float av = fabsf(v);
+      const float* row = L + p * n;
+      int rank = 0, below = 0;
+      if (n >= 4) {
+        // rows start at multiples of 4 floats: 16-byte reads
+        const float4* row4 = reinterpret_cast<const float4*>(row);
+        for (int k4 = 0; k4 < (n >> 2); ++k4) {
+          const float4 w4 = row4[k4];
+          const float ak[4] = {fabsf(w4.x), fabsf(w4.y), fabsf(w4.z), fabsf(w4.w)};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = 4 * k4 + i;
+            rank += (ak[i] < av) || (ak[i] == av && k < j);
+            below += ak[i] < kBig;
+          }
+        }
+      } else {
+        for (int k = 0; k < n; ++k) {
+          const float ak = fabsf(row[k]);
+          rank += (ak < av) || (ak == av && k < j);
+          below += ak < kBig;
+        }
+      }
+      if (rank < n_min) {
+        sm.poss[rank][p] = (short)j;
+        sm.vals[rank][p] = av;
+        if (rank == 0) sm.rstar[p] = (unsigned char)min(below, n_min);
+      }
+    }
+    if (spc) {
+      const unsigned neg = __ballot_sync(kFull, in && v < 0.f);
+      if (lane == 0) {
+        if (n >= 32) {
+          atomicXor(&sm.par[base >> ln], (unsigned)__popc(neg) & 1u);
+        } else {
+          for (int sg = 0; sg < 32 && base + sg < E; sg += n)
+            atomicXor(&sm.par[(base + sg) >> ln],
+                      (unsigned)__popc((neg >> sg) & ((1u << n) - 1u)) & 1u);
+        }
+      }
     }
   }
 }
@@ -727,10 +862,18 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if constexpr (SRC == kPathBound) sm.pm[tid] = a.pm_in[blockIdx.x * P + tid];
     else sm.pm[tid] = (tid == 0) ? 0.f : kBig;
   }
+  if constexpr (CAP == 32) {
+    if (tid < 64)
+      reinterpret_cast<float*>(sm.cand)[tid] =
+          (tid & 31) < P ? 0.f : __int_as_float(0x7fffffff);   // NaN
+    if (tid < 32) sm.par[tid] = 0u;
+  }
   __syncthreads();
   clk_mark(kClkSetup);
 
   int q = 0;   // trajectory span of the next node op
+  // pm in order by (value, path): [0, kBig, ...] is; K3's pm_in is not
+  bool pm_sorted = SRC != kPathBound;
   for (int o = 0; o < a.n_ops; ++o) {
     const int4 op = a.ops[o];
     const int kind = op.x, lvl = op.y, t0 = op.z, child = op.w;
@@ -852,6 +995,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         maps[reset + tid] = (unsigned char)tid;
       }
       ++q;
+      pm_sorted = P == 1;
       __syncthreads();
       clk_mark(kClkR0);
       continue;
@@ -886,7 +1030,15 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
           const float a = lane < P ? sm.s0[lane] : 0.f;
           const float b = lane < P ? sm.s1[lane] : 0.f;
           float npm; int nperm, nbit;
-          fork2<CAP>(lane, P, pmv, a, b, npm, nperm, nbit);
+          if constexpr (CAP == 32) {
+            if (lane < P) {
+              reinterpret_cast<float*>(sm.cand)[lane] = pmv + a;
+              reinterpret_cast<float*>(sm.cand)[32 + lane] = pmv + b;
+            }
+            fork_table(sm, lane, P, false, npm, nperm, nbit);
+          } else {
+            fork2(lane, P, pmv, a, b, npm, nperm, nbit);
+          }
           if (lane < P) {
             sm.pm[lane] = npm;
             sm.nmap[lane] = (unsigned char)nperm;
@@ -906,6 +1058,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       }
       if (tid < P) tperm[q * P + tid] = sm.nmap[tid];
       ++q;
+      pm_sorted = kind != LEAF_FROZEN || P == 1;
       __syncthreads();
       clk_mark(kClkRepFork);
       continue;
@@ -915,56 +1068,123 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const bool spc = (kind == SPC);
     const int rounds = spc ? (P == 1 ? 0 : min(P, n - 1)) : min(P - 1, n);
     const int n_min = spc ? rounds + 1 : rounds;
-    for (int p = warp; p < P; p += kWarps) {
-      const float* v = L + p * n;
-      warp_extract(v, n, n_min, lane, sm, p);
-      if (spc) {
-        int par = 0;
-        for (int j = lane; j < n; j += 32) par ^= (v[j] < 0.f);
-#pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
-          par ^= __shfl_xor_sync(kFull, par, off);
-        if (lane == 0) sm.bit[p] = (unsigned char)par;
-      }
-    }
-    __syncthreads();
-    clk_mark(kClkSelect);
-    if (warp == 0) {
-      int nm = lane < P ? lane : 0;
-      float pmv = lane < P ? sm.pm[lane] : 0.f;
-      int eta = 0;
-      if (spc && lane < P) {
-        eta = sm.bit[lane];
-        pmv = pmv + (float)eta * sm.vals[0][lane];     // mandatory parity fix
-      }
+    clk_count(kClkRounds, rounds);
+    if constexpr (CAP == 32) {
       const int first = spc ? 1 : 0;
-      for (int r = 0; r < rounds; ++r) {
-        float pen = 0.f;
+      // 1. the least reliable positions and the parity, one pass
+      select_rank(L, P, n, ln, n_min, spc, sm, tid, lane, warp);
+      __syncthreads();
+      clk_mark(kClkSelect);
+      // 2. the fork chain, warp 0: metrics, node map and eta in registers
+      if (warp == 0) {
+        int nm = lane < P ? lane : 0;
+        float pmv = lane < P ? sm.pm[lane] : 0.f;
+        int eta = 0;
         if (lane < P) {
-          pen = sm.vals[r + first][nm];
-          if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
+          // inputs at or above kBig: the rounds of extract_mins, which mark
+          // a chosen position as kBig, choose one position again from the
+          // first round whose least unchosen |v| is >= kBig
+          const int rs = sm.rstar[lane];
+          if (rs < n_min) {
+            const int start = rs > 0 ? rs : 1;
+            int e = 0x7fff;
+            for (int r = 0; r < start; ++r) e = min(e, (int)sm.poss[r][lane]);
+            if (rs > 0 && sm.vals[rs][lane] == kBig)
+              e = min(e, (int)sm.poss[rs][lane]);
+            for (int r = start; r < n_min; ++r) {
+              sm.poss[r][lane] = (short)e;
+              sm.vals[r][lane] = kBig;
+            }
+          }
+          if (spc) {
+            eta = (int)sm.par[lane];
+            sm.par[lane] = 0u;
+            pmv = pmv + (float)eta * sm.vals[0][lane];   // mandatory parity fix
+          }
         }
-        float npm; int nperm, nbit;
-        fork2<CAP>(lane, P, pmv, 0.f, pen, npm, nperm, nbit);
-        nm = __shfl_sync(kFull, nm, nperm);
-        eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
-        pmv = npm;
+        __syncwarp();
+        float* cand = reinterpret_cast<float*>(sm.cand);
+        for (int r = 0; r < rounds; ++r) {
+          if (lane < P) {
+            float pen = sm.vals[r + first][nm];
+            if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
+            cand[lane] = pmv + 0.f;
+            cand[32 + lane] = pmv + pen;
+          }
+          float npm; int nperm, nbit;
+          fork_table(sm, lane, P, r > 0 || (pm_sorted && !spc), npm, nperm, nbit);
+          nm = __shfl_sync(kFull, nm, nperm);
+          eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
+          pmv = npm;
+          if (lane < P) {
+            sm.perms[r][lane] = (unsigned char)nperm;
+            sm.flips[r][lane] = (unsigned char)nbit;
+          }
+        }
+        __syncwarp();
         if (lane < P) {
-          sm.perms[r][lane] = (unsigned char)nperm;
-          sm.flips[r][lane] = (unsigned char)nbit;
+          defer_flips(sm, rounds, lane);
+          sm.pm[lane] = pmv;
+          sm.nmap[lane] = (unsigned char)nm;
+          sm.bit[lane] = (unsigned char)eta;
+          tperm[q * P + lane] = (unsigned char)nm;
         }
       }
-      __syncwarp();
-      if (lane < P) {
-        defer_flips(sm, rounds, lane);
-        sm.pm[lane] = pmv;
-        sm.nmap[lane] = (unsigned char)nm;
-        sm.bit[lane] = (unsigned char)eta;
-        tperm[q * P + lane] = (unsigned char)nm;
+      pm_sorted = P == 1 || rounds > 0 || (pm_sorted && !spc);
+      __syncthreads();
+      clk_mark(kClkChain);
+    } else {
+      for (int p = warp; p < P; p += kWarps) {
+        const float* v = L + p * n;
+        warp_extract(v, n, n_min, lane, sm, p);
+        if (spc) {
+          int par = 0;
+          for (int j = lane; j < n; j += 32) par ^= (v[j] < 0.f);
+#pragma unroll
+          for (int off = 16; off >= 1; off >>= 1)
+            par ^= __shfl_xor_sync(kFull, par, off);
+          if (lane == 0) sm.bit[p] = (unsigned char)par;
+        }
       }
+      __syncthreads();
+      clk_mark(kClkSelect);
+      if (warp == 0) {
+        int nm = lane < P ? lane : 0;
+        float pmv = lane < P ? sm.pm[lane] : 0.f;
+        int eta = 0;
+        if (spc && lane < P) {
+          eta = sm.bit[lane];
+          pmv = pmv + (float)eta * sm.vals[0][lane];     // mandatory parity fix
+        }
+        const int first = spc ? 1 : 0;
+        for (int r = 0; r < rounds; ++r) {
+          float pen = 0.f;
+          if (lane < P) {
+            pen = sm.vals[r + first][nm];
+            if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
+          }
+          float npm; int nperm, nbit;
+          fork2(lane, P, pmv, 0.f, pen, npm, nperm, nbit);
+          nm = __shfl_sync(kFull, nm, nperm);
+          eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
+          pmv = npm;
+          if (lane < P) {
+            sm.perms[r][lane] = (unsigned char)nperm;
+            sm.flips[r][lane] = (unsigned char)nbit;
+          }
+        }
+        __syncwarp();
+        if (lane < P) {
+          defer_flips(sm, rounds, lane);
+          sm.pm[lane] = pmv;
+          sm.nmap[lane] = (unsigned char)nm;
+          sm.bit[lane] = (unsigned char)eta;
+          tperm[q * P + lane] = (unsigned char)nm;
+        }
+      }
+      __syncthreads();
+      clk_mark(kClkChain);
     }
-    __syncthreads();
-    clk_mark(kClkChain);
     for (int e = tid; e < P * n; e += kThreads) {
       const int p = e >> ln, j = e & (n - 1);
       const int src = sm.nmap[p];
@@ -1512,6 +1732,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     const int rounds = spc ? (P == 1 ? 0 : min(P, n - 1)) : min(P - 1, n);
     const int n_min = spc ? rounds + 1 : rounds;
     const int first = spc ? 1 : 0;
+    clk_count(kClkRounds, rounds);
     // 1. each input's rank by (|v|, j) in its path: ranks < n_min give the
     //    least-reliable positions in order; the signs' parity (SPC)
     for (int base = gwarp * 32; base < cw * 32; base += gsize) {
@@ -1768,7 +1989,10 @@ SCL_KERNEL(scl_decode_big, 4, kLlrIn, kSelect, true, 8)
 SCL_KERNEL(scl_decode_traj_big, 4, kLlrIn, kTrajectory, true, 8)
 SCL_KERNEL(scl_mc_traj_big, 4, kMonteCarlo, kTrajectory, true, 8)
 SCL_KERNEL(scl_mc_counters_big, 4, kMonteCarlo, kCounters, true, 8)
-// capacity 32 (L <= 32): the wider fork and map loops, 2 blocks an SM
+// capacity 32 (8 < L <= 32; K1, K2, K4, K5, replacing pallas_scl.py
+// `core_sel`, `core`, `core_mc`, `core_cnt` there): the fork table, the
+// one-pass selection and the in-place flips (the note above `fork_table`);
+// ~11 KB of `Small<32>`, 8-byte path maps a thread, 2 blocks an SM
 SCL_KERNEL(scl_decode_c32, 2, kLlrIn, kSelect, false, 32)
 SCL_KERNEL(scl_decode_traj_c32, 2, kLlrIn, kTrajectory, false, 32)
 SCL_KERNEL(scl_mc_traj_c32, 2, kMonteCarlo, kTrajectory, false, 32)
@@ -1778,7 +2002,9 @@ SCL_KERNEL(scl_decode_traj_big_c32, 2, kLlrIn, kTrajectory, true, 32)
 SCL_KERNEL(scl_mc_traj_big_c32, 2, kMonteCarlo, kTrajectory, true, 32)
 SCL_KERNEL(scl_mc_counters_big_c32, 2, kMonteCarlo, kCounters, true, 32)
 // the subtree kernel: one depth-1 child a block; the l > 2 instance (it
-// also runs 2x2 stages) serves Arikan and mixed children
+// also runs 2x2 stages) serves Arikan and mixed children. scl_subtree_c32
+// (mixed_scl32's 13 children at L=32) is the capacity-32 design; its pm_in
+// is path-bound, so `pm_sorted` starts false
 SCL_KERNEL(scl_subtree, 4, kPathBound, kSubtree, true, 8)
 SCL_KERNEL(scl_subtree_c32, 2, kPathBound, kSubtree, true, 32)
 

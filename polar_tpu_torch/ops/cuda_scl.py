@@ -65,10 +65,14 @@ _THREADS = 256            # the general body's threads a codeword
 _MAX_STAGES = 17
 # static shared memory of the Arikan capacity-8 body (`Fast` in the source)
 FAST_STATIC_BYTES = 1232
+# static shared memory of the general body's list capacity 32 (`Small<32>`
+# with its fork table `ForkTable<32>`)
+SMALL32_STATIC_BYTES = 10944
 
-# `arikan8`, `fast_smem_bytes` and FAST_STATIC_BYTES model the source's
-# rule and layout on the host (the launches take the library's own
-# figures); tests/test_torch_cuda.py holds them to the library.
+# `arikan8`, `fast_smem_bytes`, `general_smem_bytes` and the static sizes
+# model the source's rule and layout on the host (the launches take the
+# library's own figures); tests/test_torch_cuda.py holds them to the
+# library.
 
 
 def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
@@ -96,6 +100,20 @@ def fast_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
     return off + 24 * m + 2 * Q * P + (N if mc else 0)
 
 
+def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Dynamic shared memory of the general body (the source's
+    `scl_smem_bytes`): LLR buffers, decision bytes, trajectory bits N*P,
+    span perms and suffix indices (Q*P bytes each), the path maps, the
+    channel LLRs and u_true (5N, Monte-Carlo kernels) and the net map (P,
+    scl_subtree)."""
+    P = int(list_size)
+    _, n_lam, n_dec, n_maps = stage_tables(spec, P)
+    Q = len(trajectory_spans(spec, P))
+    return (4 * n_lam + n_dec + spec.N * P + 2 * Q * P + n_maps
+            + (5 * spec.N if kernel in ("scl_mc_traj", "scl_mc_counters") else 0)
+            + (P if kernel == "scl_subtree" else 0))
+
+
 def max_maps(list_size: int) -> int:
     """Bytes of path maps the kernels hold (the source's `maps_per_thread`):
     the instances of list capacity 8 take 2 a thread, those of capacity 32
@@ -103,11 +121,13 @@ def max_maps(list_size: int) -> int:
     return (2 if int(list_size) <= 8 else 8) * _THREADS
 
 
-# the op-kind clock build's slots, in the source's `ClockSlot` order
+# the op-kind clock build's slots, in the source's `ClockSlot` order; the
+# last is a count, not cycles: the R1/SPC fork rounds the blocks ran
+ROUNDS_SLOT = "R1/SPC rounds"
 CLOCK_SLOTS = ("setup", "prologue", "DOWN", "UP", "R0", "REP sums",
                "REP fork", "R1/SPC select", "R1/SPC chain", "R1/SPC decide",
                "apply_perm", "inverse", "l>2 last", "l>2 trellis",
-               "l>2 table", "epilogue")
+               "l>2 table", "epilogue", ROUNDS_SLOT)
 
 _libs: dict = {}          # clock build? -> loaded library
 _clock = False            # whether launches go to the clock build

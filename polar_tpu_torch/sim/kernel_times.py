@@ -3,16 +3,18 @@
     python -m polar_tpu_torch.sim.kernel_times [--reps 5] [--batch 8192]
         [--only ca_scl,arikan_sc,...] [--mixed-batch 256]
     python -m polar_tpu_torch.sim.kernel_times --split [--batch 8192]
-        [--only ca_scl|mixed_scl32]
+        [--only ca_scl,L32,mixed_scl32]
 
 Rows (one JSON line each, with the card's name and power limit):
 `ca_scl` (L=8): K1 (`scl_decode`) on channel LLRs at 2.0 dB and K5
 (`scl_mc_counters`, the whole Monte-Carlo step); `arikan_sc` (L=1): K2
-(`scl_decode_traj`); `bch_sc` (L=1): K2 and K5, and K1 at L=8; `L32`:
+(`scl_decode_traj`); `bch_sc` (L=1): K2, K4 (`scl_mc_traj`) and K5, and
+K1 at L=8; `L32`:
 K1 and K2 at L=32 on (2,)*7 with CRC-8 and on the mixed (16,2,2); and
 `mixed_scl32` (L=32, `--mixed-batch` codewords, the preset's 256 by
 default): K3 as the 13 subtree-kernel launches of one decode (inputs
-captured from the K3 route), K6 as its 15 outer stage-kernel launches, and
+captured from the K3 route), K6 as its 15 outer stage-kernel launches, the
+whole decode through the K3 route, and
 K6 alone at each tail-table input of the 16x16 kernel at the outer shape
 (P=32, n=256). Each time is the mean of 20 launches
 (2 for the mixed_scl32 rows) after 2 warm-up launches, repeated `--reps`
@@ -20,14 +22,18 @@ times; `min_ms` is the least. It uses only entry points that earlier
 versions of the port have, so two checkouts can be compared in one call
 on one card (run it in each, in the order A, B, B, A).
 
-`--split` instead launches K5 and K1 at ca_scl once each, and K3 as the
-13 launches of one mixed_scl32 decode (the captured inputs above), through
-the op-kind clock build of csrc/scl_decode.cu (`-DSCL_CLOCK`,
-ops/cuda_scl.py `clock_build`) and prints the cycles a block spends in
-each kind of op, as thread 0 of the first 128 blocks of each launch sees
-them; the l > 2 DOWN ops have slots of their own (the last input, the
-syndrome trellis, the tail table). `--only ca_scl` or `--only
-mixed_scl32` splits one of the two.
+`--split` instead launches K5 and K1 at ca_scl once each, K1 at L=32 on
+the two `L32` specs (`--batch` codewords), and K3 as the 13 launches of one
+mixed_scl32 decode (the captured inputs above), through the op-kind clock
+build of csrc/scl_decode.cu (`-DSCL_CLOCK`, ops/cuda_scl.py
+`clock_build`) and prints the cycles a block spends in each kind of op,
+as thread 0 of the first 128 blocks of each launch sees them; the l > 2
+DOWN ops have slots of their own (the last input, the syndrome trellis,
+the tail table). It also prints the R1/SPC fork rounds a block ran and
+the chain's cycles a round: the rounds follow from the op program alone
+(`fork_rounds`), and a clock build that counts them (its `R1/SPC rounds`
+slot) must agree. `--only` picks the runs (`ca_scl`, `L32`,
+`mixed_scl32`).
 
 `trace_summary` reads a torch.profiler Chrome trace (sim/sweep_cli.py
 `--profile`): the device's busy and idle share of the traced window, the
@@ -100,16 +106,33 @@ def _decode_rows(name, spec, L, kernels, B, gen, dev):
             d = SclDecoder(spec, L, dev, select=False)
             out.append((name, k, L, lambda d=d: d.trajectory(llr)))
         else:
-            step = build_mc_step(spec, L, device=dev, counters=True)
+            counters = k == "scl_mc_counters"
+            step = build_mc_step(spec, L, device=dev, counters=counters)
             sigma = float(ebn0_to_sigma(2.0, spec.rate))
-            out.append((name, k, L, lambda s=step: s.counts((11, 12), sigma, B)))
+            fn = step.counts if counters else step.trajectory
+            out.append((name, k, L, lambda f=fn: f((11, 12), sigma, B)))
     return out
 
 
+def fork_rounds(spec: CodeSpec, P: int) -> int:
+    """The R1/SPC fork rounds of one decode of `spec` at list size P (a
+    property of the op program: min(P - 1, n) an R1 node, min(P, n - 1)
+    an SPC node, none at P = 1)."""
+    from polar_tpu_torch.ops.program import build_program
+
+    if P == 1:
+        return 0
+    n_of = spec.block_sizes
+    return sum(min(P - 1, n_of[op.level]) if op.kind == "R1"
+               else min(P, n_of[op.level] - 1)
+               for op in build_program(spec, scl=True).ops
+               if op.kind in ("R1", "SPC"))
+
+
 def _mixed_capture(dev, B: int):
-    """(calls, outer): the (core, lam1, pm) of the 13 K3 launches of one
-    mixed_scl32 decode of B codewords through the K3 route, and the (i,
-    paths) of its 15 outer K6 launches."""
+    """(calls, outer, decode): the (core, lam1, pm) of the 13 K3 launches
+    of one mixed_scl32 decode of B codewords through the K3 route, the (i,
+    paths) of its 15 outer K6 launches, and that decode."""
     from polar_tpu_torch.ops.cuda_scl import SubtreeKernel
     from polar_tpu_torch.ops.mc import mc_draw
     from polar_tpu_torch.ops.philox import step_seed
@@ -142,7 +165,7 @@ def _mixed_capture(dev, B: int):
             i = 0 if op.kind == "DOWN_FRESH" else int(digits[op.t0, 0])
             if i < 15:
                 outer.append((i, 1 if op.kind == "DOWN_FRESH" else P))
-    return calls, outer
+    return calls, outer, lambda: route(llr)
 
 
 def _mixed_rows(dev, B: int):
@@ -152,7 +175,7 @@ def _mixed_rows(dev, B: int):
     (P=32, n=256)."""
     from polar_tpu_torch.ops import cuda_stage
 
-    calls, outer = _mixed_capture(dev, B)
+    calls, outer, decode = _mixed_capture(dev, B)
     preset = get_preset("mixed_scl32")
     spec, P = preset.spec, preset.list_size
     n1 = spec.block_sizes[1]
@@ -164,7 +187,8 @@ def _mixed_rows(dev, B: int):
     rows = [("mixed_scl32", f"scl_subtree x{len(calls)}", P,
              lambda: [c.kernel(l1, pm) for c, l1, pm in calls]),
             ("mixed_scl32", f"stage_down x{len(fns)}", P,
-             lambda: [f(v) for f, v in fns])]
+             lambda: [f(v) for f, v in fns]),
+            ("mixed_scl32", "K3 route decode", P, decode)]
     proc = cuda_stage.processor(spec.kernels[0])
     for i in range(15):
         if proc.backend[i] == "table":
@@ -174,13 +198,15 @@ def _mixed_rows(dev, B: int):
     return rows
 
 
-def split(B: int, dev, card: str, only=("ca_scl", "mixed_scl32")) -> None:
-    """The op-kind clock of K5 and K1 at ca_scl (B codewords) and of K3 on
-    the 13 children of one mixed_scl32 decode (B=256), through the clock
-    build."""
+def split(B: int, dev, card: str, only=("ca_scl", "L32", "mixed_scl32")) -> None:
+    """The op-kind clock of K5 and K1 at ca_scl (B codewords), of K1 at
+    L=32 on the `L32` specs (B codewords) and of K3 on the 13 children of
+    one mixed_scl32 decode (B=256), through the clock build."""
     from polar_tpu_torch.ops import cuda_scl
 
-    runs = []
+    # older checkouts' clock builds have no round count
+    rounds_slot = getattr(cuda_scl, "ROUNDS_SLOT", None)
+    runs = []       # (preset, kernel, batch, fn, (fork rounds, launches))
     if "ca_scl" in only:
         preset = get_preset("ca_scl")
         spec, L = preset.spec, preset.list_size
@@ -189,25 +215,48 @@ def split(B: int, dev, card: str, only=("ca_scl", "mixed_scl32")) -> None:
         dec = SclDecoder(spec, L, dev, select=True)
         step = build_mc_step(spec, L, device=dev, counters=True)
         sigma = float(ebn0_to_sigma(2.0, spec.rate))
+        rounds = (fork_rounds(spec, L), 1)
         runs += [("ca_scl", "scl_mc_counters", B,
-                  lambda: step.counts((11, 12), sigma, B)),
-                 ("ca_scl", "scl_decode", B, lambda: dec.kernel(llr))]
+                  lambda: step.counts((11, 12), sigma, B), rounds),
+                 ("ca_scl", "scl_decode", B, lambda d=dec, x=llr: d.kernel(x),
+                  rounds)]
+    if "L32" in only:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        crc8 = CrcSpec(8, 0x07, 0)
+        for name, spec in (("L32 (2,)*7", _mixed_spec((2,) * 7, 56, crc8)),
+                           ("L32 (16,2,2)", _mixed_spec((16, 2, 2), 20, crc8))):
+            runs.append((name, "scl_decode", B,
+                         lambda d=SclDecoder(spec, 32, dev, select=True),
+                         x=_channel(spec, B, gen, dev): d.kernel(x),
+                         (fork_rounds(spec, 32), 1)))
     if "mixed_scl32" in only:
         Bm = get_preset("mixed_scl32").batch
-        calls, _ = _mixed_capture(dev, Bm)
+        calls, _, _ = _mixed_capture(dev, Bm)
+        rounds = (sum(fork_rounds(c.spec, c.P) for c, _, _ in calls), len(calls))
         runs.append(("mixed_scl32", f"scl_subtree x{len(calls)}", Bm,
-                     lambda: [c.kernel(l1, pm) for c, l1, pm in calls]))
-    for preset, k, batch, fn in runs:
+                     lambda: [c.kernel(l1, pm) for c, l1, pm in calls], rounds))
+    for preset, k, batch, fn, (rounds, launches) in runs:
         fn()                       # the tables, outside the clock
         with cuda_scl.clock_build() as lib:
             fn()
             clk = cuda_scl.read_clock(lib)
         blocks = clk.pop("blocks")
+        counted = clk.pop(rounds_slot, None)
+        # every launch measures the same number of blocks
+        if counted is not None and counted * launches != rounds * blocks:
+            raise RuntimeError(f"{preset} {k}: the clock counted {counted} fork "
+                               f"rounds, the program gives "
+                               f"{rounds * blocks / launches}")
         total = sum(clk.values())
+        per_block = rounds / launches
         print(json.dumps({
             "preset": preset, "kernel": k, "batch": batch,
             "blocks_measured": blocks,
             "cycles_per_block": total / blocks,
+            "fork_rounds_per_block": per_block,
+            "rounds_from": "program" if counted is None else "program == clock",
+            "chain_cycles_per_round": (clk.get("R1/SPC chain", 0) / blocks / per_block
+                                       if rounds else None),
             "split": {s: {"cycles_per_block": c / blocks, "share": c / total}
                       for s, c in clk.items() if c},
             "card": card}), flush=True)
@@ -274,8 +323,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mixed-batch", type=int, default=256,
                     help="codewords of the mixed_scl32 rows (the preset's 256)")
     ap.add_argument("--split", action="store_true",
-                    help="the op-kind clock of K5 and K1 at ca_scl and of K3 "
-                         "at mixed_scl32 instead")
+                    help="the op-kind clock of K5 and K1 at ca_scl, of K1 at "
+                         "L=32 and of K3 at mixed_scl32 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -297,7 +346,8 @@ def main(argv=None) -> None:
                                           1, ("scl_decode_traj",), B, gen, dev),
         "bch_sc": lambda: (
             _decode_rows("bch_sc", get_preset("bch_sc").spec, 1,
-                         ("scl_decode_traj", "scl_mc_counters"), B, gen, dev)
+                         ("scl_decode_traj", "scl_mc_traj", "scl_mc_counters"),
+                         B, gen, dev)
             + _decode_rows("bch_sc", get_preset("bch_sc").spec, 8,
                            ("scl_decode",), B, gen, dev)),
         "L32": lambda: (

@@ -315,17 +315,35 @@ _SUBTREE = [((2, 2, 2, 2, 2), 12, None), ((2, 16, 2), 14, CrcSpec(8, 0x07, 0)),
             ((16, 2, 2, 2), 40, CrcSpec(8, 0x07, 0))]
 
 
-@pytest.mark.parametrize("L", [1, 4, 32])
+def _huge(x: np.ndarray, rng, inf: bool) -> np.ndarray:
+    """x with ~30% of its entries at +-1e30 (the selection's kBig), 5% at
+    +-4e30 and, if `inf` (Arikan specs: an f step never pairs two), one
+    +-inf a row; l > 2 marginals of an infinite input give inf - inf."""
+    pick = rng.random(x.shape)
+    x = np.where(pick < 0.3, np.sign(x) * 1e30, x)
+    x = np.where((pick > 0.3) & (pick < 0.35), np.sign(x) * 4e30, x)
+    if inf:
+        rows = x.reshape(-1, x.shape[-1])
+        rows[np.arange(rows.shape[0]), rng.integers(0, x.shape[-1], rows.shape[0])] = (
+            np.inf * np.sign(rng.standard_normal(rows.shape[0])))
+    return x
+
+
+@pytest.mark.parametrize("L", [1, 4, 9, 16, 31, 32])
 @pytest.mark.parametrize("factors,K,crc", _SUBTREE)
 def test_subtree_kernel_matches_plain(cuda, factors, K, crc, L):
     """Every depth-1 child of more than one op, on a path-bound input
-    (a different row and metric a path)."""
+    (a different row and metric a path): Gaussian inputs and unsorted
+    metrics; integer inputs and metrics (tied candidates, tied
+    least-reliable inputs); inputs at +-1e30 and above on sorted metrics
+    (which K3 still forks by the general rank: pm_in is path-bound)."""
     from polar_tpu_torch.ops.program import build_program, subtree_items, subtree_spec
     spec = _mixed(factors, K, crc)
     subs = [it for it in subtree_items(build_program(spec, scl=L > 1), spec)
             if it[0] == "sub"]
     assert subs
     gen = torch.Generator(device=cuda).manual_seed(L)
+    rng = np.random.default_rng(L)
     for _, _, fr in subs:
         core = cuda_scl.SubtreeKernel(subtree_spec(spec, fr), L)
         lam = 2.5 * torch.randn((L, core.spec.N, 256), generator=gen, device=cuda)
@@ -334,6 +352,11 @@ def test_subtree_kernel_matches_plain(cuda, factors, K, crc, L):
         got = core(lam, pm)
         assert cuda_scl.LAUNCHES["scl_subtree"] == before + 1
         _same(got, core.plain(lam, pm))
+        tied = torch.round(lam), torch.round(pm)
+        huge = (torch.as_tensor(_huge(lam.cpu().numpy(), rng, False), device=cuda),
+                pm.sort(dim=0).values)
+        for x, m in (tied, huge):
+            _same(core(x, m), core.plain(x, m))
 
 
 @pytest.mark.parametrize("L", [4, 32])
@@ -356,18 +379,21 @@ def test_subtree_route_matches_kernel_decode(cuda, factors, K, crc, L):
         assert cuda_scl.LAUNCHES["scl_subtree"] == before + n_subs
 
 
-@pytest.mark.parametrize("L", [9, 16, 32])
+@pytest.mark.parametrize("L", [9, 16, 31, 32])
 @pytest.mark.parametrize("factors,K,crc", [((2,) * 6, 20, CrcSpec(8, 0x07, 0)),
                                            ((16, 2, 2), 20, CrcSpec(8, 0x07, 0)),
                                            ((2, 16, 2), 14, None)])
 def test_capacity32_kernels_match_plain(cuda, factors, K, crc, L):
-    """K1, K2 (Gaussian and integer LLRs) and K4, K5 (injected noise) at
-    list sizes 9..32: the capacity-32 instances."""
+    """K1, K2 (Gaussian, integer: tied metrics and positions, and huge
+    LLRs at +-1e30, above it and +-inf) and K4, K5 (injected noise, normal
+    and huge) at list sizes 9..32: the capacity-32 instances."""
     from polar_tpu_torch.ops.mc import build_mc_step
     spec = _mixed(factors, K, crc)
+    arikan = set(factors) == {2}
     rng = np.random.default_rng(spec.N + L)
     for v in (2.0 * rng.standard_normal((256, spec.N)) + 0.5,
-              np.round(3.0 * rng.standard_normal((256, spec.N)))):
+              np.round(3.0 * rng.standard_normal((256, spec.N))),
+              _huge(3.0 * rng.standard_normal((256, spec.N)), rng, arikan)):
         x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
         for select in (True, False):
             dec = cuda_scl.SclDecoder(spec, L, cuda, select=select)
@@ -375,12 +401,53 @@ def test_capacity32_kernels_match_plain(cuda, factors, K, crc, L):
             if not select:
                 _same(dec.trajectory(x), dec.plain_trajectory(x))
     step = build_mc_step(spec, L, device=cuda)
-    noise = torch.as_tensor(rng.standard_normal((256, spec.N)), dtype=torch.float32,
-                            device=cuda)
-    _same(step.trajectory((7, 8), 0.8, 256, noise),
-          step.plain_trajectory((7, 8), 0.8, 256, noise))
-    assert torch.equal(step.counts((7, 8), 0.8, 256, noise),
-                       step.plain_counts((7, 8), 0.8, 256, noise))
+    g = rng.standard_normal((256, spec.N))
+    for v in (g, np.where(rng.random(g.shape) < 0.3, 1e32, g)):
+        noise = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        _same(step.trajectory((7, 8), 0.8, 256, noise),
+              step.plain_trajectory((7, 8), 0.8, 256, noise))
+        assert torch.equal(step.counts((7, 8), 0.8, 256, noise),
+                           step.plain_counts((7, 8), 0.8, 256, noise))
+
+
+def test_capacity32_shared_memory_mirror(cuda):
+    """The library's shared memory of the capacity-32 instances == the
+    Python mirror (`general_smem_bytes`, SMALL32_STATIC_BYTES), and K3
+    holds 2 blocks an SM on every mixed_scl32 child at L=32."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops.program import build_program, subtree_items, subtree_spec
+    for factors, K, crc in (((2,) * 7, 56, CrcSpec(8, 0x07, 0)),
+                            ((16, 2, 2), 20, None)):
+        spec = _mixed(factors, K, crc)
+        for L in (9, 32):
+            k = cuda_scl.SclKernels(spec, L)
+            for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
+                         "scl_mc_counters", "scl_subtree"):
+                dyn, static = k.smem_bytes(name, cuda)
+                assert dyn == cuda_scl.general_smem_bytes(spec, L, name), (factors, L, name)
+                assert static == cuda_scl.SMALL32_STATIC_BYTES
+    spec = mixed_scl32().spec
+    for it in subtree_items(build_program(spec, scl=True), spec):
+        if it[0] == "sub":
+            k = cuda_scl.SclKernels(subtree_spec(spec, it[2]), 32)
+            assert k.blocks_per_sm("scl_subtree", cuda) == 2, it[1]
+
+
+def test_clock_build_counts_fork_rounds(cuda):
+    """The op-kind clock's round count equals the op program's
+    (`kernel_times.fork_rounds`) on a capacity-32 and an Arikan
+    capacity-8 decode."""
+    from polar_tpu_torch.sim.kernel_times import fork_rounds
+    for factors, L in (((2,) * 6, 32), ((16, 2, 2), 17), ((2,) * 6, 8)):
+        spec = _mixed(factors, 20, CrcSpec(8, 0x07, 0))
+        dec = cuda_scl.SclDecoder(spec, L, cuda, select=True)
+        x = torch.randn((64, spec.N), device=cuda)
+        dec.kernel(x)
+        with cuda_scl.clock_build() as lib:
+            dec.kernel(x)
+            clk = cuda_scl.read_clock(lib)
+        assert clk["blocks"] == 64
+        assert clk[cuda_scl.ROUNDS_SLOT] == 64 * fork_rounds(spec, L), (factors, L)
 
 
 def test_golden_mixed_replay_on_card(cuda):
