@@ -13,14 +13,16 @@ decoder with the stage kernel of polar_tpu_torch/csrc/stage_down.cu; and
 scl_decode.cu, one launch a depth-1 child. Arikan specs at list sizes
 <= 8 decode through the redesigned Arikan capacity-8 body of
 scl_decode.cu (128 threads a codeword, packed bits, rank forks), every
-other spec through its general body.
+other spec through its general body (at L <= 8 a warp a path: bch_sc at
+L=1 one warp a codeword).
 Phases (any failure exits non-zero):
 
 1. device: name, count, nvidia-smi name and power limit;
 2. build: one nvcc a source, and one for the op-kind clock build of
    scl_decode.cu (phase 23), all started together; seconds, ptxas's
-   registers and spills of each instance (a capacity-32 instance that
-   spills fails), threads a block;
+   registers and spills of each instance (an instance of the general body,
+   capacity 8 or 32, that spills fails), threads a block, and at bch_sc
+   for L = 1..8 threads and blocks an SM (occupancy API);
 3. golden replay: results/golden_ca_scl_b256.npz (256 frames recorded
    from the independent C++ decoder) through scl_decode, 0 mismatches;
 4. scl_decode == plain PyTorch version on the card, bit for bit (u,
@@ -63,8 +65,10 @@ Phases (any failure exits non-zero):
    shapes (P, n) = (1, 16), (1, 1), (8, 16), (8, 1), B=8192;
 13. the decode body's l > 2 branch == plain bit for bit: K1, K2, K4, K5
    (K4/K5 with injected noise) on mixed specs with and without CRC at
-   B=1024, and at bch_sc B=8192: K2 at L=1, K4/K5 at L=1, K1 at L=8; the
-   in-kernel Philox draw at bch_sc (u_true exact, <= 1 frame in 10^4);
+   B=1024, and at bch_sc B=8192: K2 at L=1, K4/K5 at L=1, K1 at L=8, and
+   on integer (tied) and huge (+-1e30, 4e30) LLRs and noise K1 at L=8, K2
+   at L=1, K4/K5 at L=1 and 8; the in-kernel Philox draw at bch_sc (u_true
+   exact, <= 1 frame in 10^4);
 14. the bch_sc sweep through `fused` (K5) at 1.0..3.0 dB, 2^18 frames a
    point (the size of the record), two-proportion z-test against
    results/bch_sc_tpu.jsonl at each point, |z| < 4;
@@ -75,7 +79,8 @@ Phases (any failure exits non-zero):
    launches counted from 0;
 16. times by CUDA events at bch_sc, B=8192 and the preset's 2048: K1 (L=8),
    K2, K4, K5 (L=1), and K6 as the 105 launches of one hybrid decode, each
-   with its plain version and bound; the hybrid decode's own time;
+   with its plain version and bound, K1-K5 at B=8192 beside their times
+   before the capacity-8 redesign (PERF.md); the hybrid decode's own time;
 17. list capacity 32: K1, K2, K4, K5 == plain bit for bit at L = 16 and 32
    on small Arikan and mixed specs, on Gaussian LLRs and noise and on huge
    ones (+-1e30, 4e30, one +-inf a codeword on the Arikan spec; noise
@@ -109,7 +114,8 @@ Phases (any failure exits non-zero):
    K6 launches (each with plain version and bound) and the whole decode
    through the K3 route and through the hybrid; K3 == plain on the 13
    children's inputs captured at B=2048;
-23. the op-kind split of K5 and K1 at ca_scl, B=8192, of K1 at L=32 on
+23. the op-kind split of K5 and K1 at ca_scl, B=8192, of K5 at bch_sc
+   (L=1) and K1 at bch_sc L=8, B=8192, of K1 at L=32 on
    (2,)*7 and (16,2,2), B=8192, and of K3 on the 13 children of one
    mixed_scl32 decode (B=256), through the op-kind clock build of
    scl_decode.cu (-DSCL_CLOCK, sim/kernel_times.py `split`): cycles a
@@ -245,6 +251,11 @@ CONSTRUCTIONS = (("bch_n256_k128", (16, 16), 128, 1 << 15),
                  ("mixed_n4096_k2064", (16, 16, 2, 2, 2, 2), 2064, 1 << 15))
 CONSTRUCT_SD = 4.0          # a leaf the masks disagree on: within 4 sd of the cut
 CONSTRUCT_SAME_FRAMES = 4096    # bch_n256's genie decode on the card and the CPU
+# bch_sc at B=8192 before the general body's capacity-8 redesign (PERF.md:
+# sim/kernel_times.py on an NVIDIA H100 80GB HBM3, 700 W; K1 at L=8, the
+# others at L=1), printed beside phase 16's times
+BCH_PARENT_MS = {"scl_decode": 19.121, "scl_decode_traj": 9.376,
+                 "scl_mc_traj": 8.843, "scl_mc_counters": 8.712}
 
 
 def all_launches() -> dict:
@@ -929,6 +940,31 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             check("scl_mc_counters", what + " noise in",
                   [step.counts(seed, sigma, b, noise)],
                   [step.plain_counts(seed, sigma, b, noise)])
+    # bch_sc at B=8192 on integer LLRs (tied metrics and positions) and
+    # huge ones (+-1e30, 4e30; no +-inf: an l > 2 marginal of an infinite
+    # input is inf - inf), noise integer and at 1e32: K1 at L=8, K2 at L=1,
+    # K4/K5 at L=1 and 8
+    g = 3.0 * rng.standard_normal((BATCH, bspec.N))
+    hard = {"int": np.round(g), "huge": huge_values(g, rng, False)}
+    ng = rng.standard_normal((BATCH, bspec.N))
+    hard_noise = {"int": np.round(1.5 * ng),
+                  "huge": np.where(rng.random(ng.shape) < 0.3, 1e32, ng)}
+    for label, v in hard.items():
+        x = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        d = SclDecoder(bspec, 8, dev, select=True)
+        check("scl_decode", f"bch_sc L=8 {label}", tuple(d.kernel(x)), tuple(d.plain(x)))
+        d = SclDecoder(bspec, 1, dev, select=False)
+        check("scl_decode_traj", f"bch_sc L=1 {label}", d.trajectory(x),
+              d.plain_trajectory(x))
+        noise = torch.as_tensor(hard_noise[label], dtype=torch.float32, device=dev)
+        for lsz in (1, 8):
+            step = build_mc_step(bspec, lsz, device=dev)
+            check("scl_mc_traj", f"bch_sc L={lsz} {label} noise",
+                  step.trajectory((5, 6), 1.0, BATCH, noise),
+                  step.plain_trajectory((5, 6), 1.0, BATCH, noise))
+            check("scl_mc_counters", f"bch_sc L={lsz} {label} noise",
+                  [step.counts((5, 6), 1.0, BATCH, noise)],
+                  [step.plain_counts((5, 6), 1.0, BATCH, noise)])
     torch.cuda.synchronize()
     # the in-kernel Philox draw at bch_sc: u_true exact, decisions and
     # counts at most 1 frame in 10^4 apart (libdevice logf/sinf/cosf)
@@ -945,8 +981,10 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
         raise SystemExit(f"bch_sc in-kernel Philox: {differ} frames differ")
     print(f"l > 2 decode body == plain: {len(cases)} specs x kernels bit-exact "
           f"(mixed (16,), (4,4), (16,2), (2,16) CRC-8, (16,2,2) CRC-8 at B=1024; "
-          f"bch_sc K2 L=1, K4/K5 L=1 noise in, K1 L=8 at B={BATCH}); bch_sc "
-          f"in-kernel Philox: u_true exact, {differ} of {BATCH} frames differ")
+          f"bch_sc K2 L=1, K4/K5 L=1 noise in, K1 L=8 at B={BATCH}; bch_sc "
+          f"on integer and huge LLRs and noise: K1 L=8, K2 L=1, K4/K5 L=1 and 8); "
+          f"bch_sc in-kernel Philox: u_true exact, {differ} of {BATCH} frames "
+          f"differ")
 
     # ---- 14. the bch_sc sweep through the fused step (K5) ----
     ref = {json.loads(line)["ebn0_db"]: json.loads(line) for line in
@@ -1058,7 +1096,11 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             r = dict(bd, ms=time_ms(kfn, iters=10, reps=3),
                      plain_ms=time_ms(pfn, iters=1, warmup=1))
             shape = f"bch_sc L={8 if name == 'scl_decode' else 1} B={b}"
-            print(f"time: {name} {shape} ms={r['ms']} cw_per_s={b / r['ms'] * 1e3} "
+            parent = (f" (before the capacity-8 redesign: {BCH_PARENT_MS[name]} ms, "
+                      f"x{BCH_PARENT_MS[name] / r['ms']:.2f})"
+                      if name in BCH_PARENT_MS and b == BATCH else "")
+            print(f"time: {name} {shape} ms={r['ms']}{parent} "
+                  f"cw_per_s={b / r['ms'] * 1e3} "
                   f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
                   f"({r['bound_by']}: bytes={r['bytes']} {r['t_bytes']} ms, "
                   f"element_ops={r['ops']} {r['t_ops']} ms) [{card}]")
@@ -1503,7 +1545,7 @@ def main() -> int:
         return 2
     from polar_tpu_torch.construction.ga import construct_ga
     from polar_tpu_torch.models.polar import CodeSpec, CrcSpec
-    from polar_tpu_torch.models.presets import ca_scl
+    from polar_tpu_torch.models.presets import ca_scl, get_preset
     from polar_tpu_torch.ops import cuda_build, cuda_scl, cuda_stage
     from polar_tpu_torch.ops.crc import crc_append
     from polar_tpu_torch.ops.encode import encode
@@ -1540,15 +1582,23 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else "?"
             if "registers" in line or "spill" in line:
                 print(f"ptxas: {entry}: {line.strip()}")
-            if "_c32" in entry and any(int(v) for v in re.findall(r"(\d+) bytes spill",
-                                                                   line)):
-                raise SystemExit(f"ptxas: the capacity-32 instance {entry} "
+            general = "_c32" in entry or "_big_t" in entry or "scl_subtree_t" in entry
+            if general and any(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                          line)):
+                raise SystemExit(f"ptxas: the general body's instance {entry} "
                                  f"spills: {line.strip()}")
+    ca_kernels = cuda_scl.SclKernels(ca_scl().spec, 8)
     print(f"threads a block: Arikan capacity-8 instances (scl_decode, "
           f"scl_decode_traj, scl_mc_traj, scl_mc_counters; 2x2 kernels, L <= 8) "
-          f"{lib.scl_block_threads(3, 8, 0)}; l > 2, capacity 32 and scl_subtree "
-          f"{lib.scl_block_threads(4, 8, 1)}")
-    ca_kernels = cuda_scl.SclKernels(ca_scl().spec, 8)
+          f"{ca_kernels.block_threads('scl_mc_counters', dev)}; capacity 32 "
+          f"{cuda_scl.SclKernels(ca_scl().spec, 32).block_threads('scl_decode', dev)}")
+    bch8 = get_preset("bch_sc").spec
+    for L in range(1, 9):
+        k8 = cuda_scl.SclKernels(bch8, L)
+        print(f"the general body at bch_sc L={L}: threads, blocks an SM (occupancy "
+              f"API), (dynamic, static shared memory) a block: "
+              + ", ".join(f"{k} {k8.block_threads(k, dev)} {k8.blocks_per_sm(k, dev)} "
+                          f"{k8.smem_bytes(k, dev)}" for k in cuda_scl.KERNELS))
     print("blocks an SM at ca_scl L=8 (dynamic, static shared memory a block): "
           + ", ".join(f"{k} {ca_kernels.blocks_per_sm(k, dev)} "
                       f"{ca_kernels.smem_bytes(k, dev)}"
@@ -1939,7 +1989,7 @@ def main() -> int:
     mixed_rows = mixed_phases(dev, card, rng, check, err, main_path, rows,
                               main_launches)
 
-    # ---- 23. the op-kind split: K5, K1 at ca_scl, K1 at L=32, K3 at mixed_scl32 ----
+    # ---- 23. the op-kind split: K5, K1 at ca_scl and bch_sc, K1 at L=32, K3 ----
     from polar_tpu_torch.sim.kernel_times import split
     split(BATCH, dev, card)
 

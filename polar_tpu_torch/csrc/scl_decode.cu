@@ -30,15 +30,16 @@
 // Two bodies. K1, K2, K4 and K5 of Arikan specs (2x2 kernels only) at
 // P <= 8 run `fast_body`, the body redesigned for Hopper (128 threads a
 // codeword, packed bits, rank forks, warp-0 ops; its note below); every
-// other instance runs the general body `scl_body` (256 threads), whose
-// design the rest of this note describes. `arikan8` is the rule.
+// other instance runs the general body `scl_body`, whose design the rest
+// of this note describes. `arikan8` is the rule.
 //
 // List capacity: every kernel has an instance for P <= 8 and one for
-// P <= 32 (template CAP), chosen at launch. Capacity 8 ranks the 2P fork
-// candidates one a lane by shuffles and keeps the R1/SPC minima's
-// positions in registers. Capacity 32 (K3 `scl_subtree_c32`, replacing
-// pallas_scl.py `core_sub`, and K1, K2, K4, K5 at 8 < L <= 32) was
-// redesigned for Hopper; its note is above `fork_table`.
+// P <= 32 (template CAP), chosen at launch. Capacity 32 (K3
+// `scl_subtree_c32`, replacing pallas_scl.py `core_sub`, and K1, K2, K4,
+// K5 at 8 < L <= 32; 256 threads) was redesigned for Hopper; its note is
+// above `fork_table`. Capacity 8 (the l > 2 instances at L <= 8, bch_sc's
+// among them, and K3 `scl_subtree`) was redesigned after it; its note is
+// above `kBig8Registers`.
 //
 // The subtree kernel's stage-1 DOWNs read row netmap[p] of the input
 // block: netmap, one more P-byte map after the stage maps, starts as the
@@ -159,7 +160,7 @@ struct SclArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // capacity 32: threads a codeword
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 17;          // m <= 16: N <= 65536 for 2x2 kernels
 constexpr float kBig = 1e30f;
@@ -229,25 +230,21 @@ __device__ __forceinline__ void clk_count(int, int) {}
 __device__ __forceinline__ void clk_end() {}
 #endif
 
-// Path maps a thread of apply_perm holds: the maps of a list capacity CAP
-// (the instances of capacity 8 and 32) are <= this many times kThreads
-// bytes.
-__host__ __device__ constexpr int maps_per_thread(int cap) {
-  return cap <= 8 ? 2 : 8;
-}
+// Path maps a thread of the capacity-32 apply_perm holds: the maps are <=
+// this many times kThreads bytes. (Capacity 8 permutes a map a thread:
+// no limit.)
+constexpr int kMapsPerThread32 = 8;
 
-// The capacity-32 fork table and one-pass selection state (none at
-// capacity 8: an empty base takes no space).
+// The fork table and one-pass selection state of a list capacity CAP.
 template <int CAP>
-struct ForkTable {};
-
-template <>
-struct ForkTable<32> {
-  float4 cand[16];                 // candidate slot s = bit * 32 + p; NaN for p >= P
-  float spm[32];                   // fork survivors' metrics, by rank
-  unsigned par[32];                // SPC parity per path, 0 between nodes
-  unsigned char src[32];           // fork survivors' slots, by rank
-  unsigned char rstar[32];         // inputs below kBig per path (<= n_min)
+struct ForkTable {
+  float4 cand[CAP / 2];            // candidates: capacity 32 slot s = bit * 32
+                                   // + p, NaN for p >= P; capacity 8
+                                   // `fork_rank`'s c = bit * P + p
+  float spm[CAP];                  // fork survivors' metrics, by rank
+  unsigned par[CAP];               // SPC parity per path, 0 between nodes
+  unsigned char src[CAP];          // fork survivors' slots, by rank
+  unsigned char rstar[CAP];        // inputs below kBig per path (<= n_min)
 };
 
 // The node-local state of a list capacity CAP (P <= CAP).
@@ -303,65 +300,79 @@ __device__ float warp_tree_sum(const float* v, int n, int positive, int lane) {
   return s;
 }
 
-// count smallest |v[j]| (j < n) with positions, ascending, ties to the
-// lowest index; an already chosen position counts as kBig. Whole warp,
-// capacity 8 (capacity 32 selects in one pass, `select_rank`): the chosen
-// positions stay in registers (the rounds unrolled).
-__device__ void warp_extract(const float* v, int n, int count, int lane,
-                             Small<8>& sm, int p) {
-  constexpr int kRounds = Small<8>::kRounds;
-  auto pick = [&](float& bv, int& bi) {
+// A barrier over the block of T threads: a warp's at T = 32.
+template <int T>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (T == 32) __syncwarp();
+  else __syncthreads();
+}
+
+// 2P -> P fork, one warp, all 32 lanes (P <= 8): the Arikan capacity-8
+// body's and the general body's at capacity 8. Lane p < P holds path p's
+// metric and penalties; lane r < P gets survivor r: metric, parent path,
+// bit. Candidate c = bit * P + p ranks by (metric, c) against all 2P,
+// read from shared memory (== lax.top_k on negated metrics, ties
+// included, as ops/scl.py `fork2`).
+template <class SM>
+__device__ __forceinline__ void fork_rank(SM& sm, int lane, int P, float pm_p,
+                                          float pen0_p, float pen1_p,
+                                          float& npm, int& nperm, int& nbit) {
+  float* cand = reinterpret_cast<float*>(sm.cand);
+  if (lane < P) {
+    cand[lane] = pm_p + pen0_p;
+    cand[P + lane] = pm_p + pen1_p;
+  }
+  __syncwarp();
+  const float v = cand[lane & 15];
+  int r4[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int off = 16; off >= 1; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+  for (int i = 0; i < 4; ++i) {
+    const float4 o4 = sm.cand[i];
+    const float o[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c2 = 4 * i + k;
+      r4[i] += (c2 < 2 * P) && ((o[k] < v) || (o[k] == v && c2 < lane));
     }
-  };
-  int chosen[kRounds];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    if (r < count) {
-      float bv = __int_as_float(0x7f800000);   // +inf
-      int bi = 0x7fffffff;
-      for (int j = lane; j < n; j += 32) {
-        float val = fabsf(v[j]);
-#pragma unroll
-        for (int c = 0; c < kRounds; ++c)
-          if (c < r && chosen[c] == j) val = kBig;
-        if (val < bv) { bv = val; bi = j; }
-      }
-      pick(bv, bi);
-      chosen[r] = bi;
-      if (lane == 0) { sm.vals[r][p] = bv; sm.poss[r][p] = (short)bi; }
-    }
+  }
+  const int rank = (r4[0] + r4[1]) + (r4[2] + r4[3]);
+  if (lane < 2 * P && rank < P) {
+    sm.spm[rank] = v;
+    sm.src[rank] = (unsigned char)lane;
+  }
+  __syncwarp();
+  npm = 0.f; nperm = 0; nbit = 0;
+  if (lane < P) {
+    const int c = sm.src[lane];
+    npm = sm.spm[lane];
+    nbit = c >= P;
+    nperm = c - (nbit ? P : 0);
   }
 }
 
-// 2P -> P fork, warp 0, all 32 lanes, capacity 8 (2P <= 16: a candidate a
-// lane; capacity 32 forks from a table, `fork_table`). Lane p < P holds
-// path p's metric and penalties. Lane r < P gets survivor r: metric,
-// parent path, bit. Candidate c = bit * P + p ranks by (metric, c).
-__device__ void fork2(int lane, int P, float pm_p, float pen0_p, float pen1_p,
-                      float& npm, int& nperm, int& nbit) {
-  const int c = lane;
-  const int p = c % P;
-  const int b = c / P;
-  const float vpm = __shfl_sync(kFull, pm_p, p);
-  const float v0 = __shfl_sync(kFull, pen0_p, p);
-  const float v1 = __shfl_sync(kFull, pen1_p, p);
-  const float cand = b ? (vpm + v1) : (vpm + v0);
-  int rank = 0;
-  for (int c2 = 0; c2 < 2 * P; ++c2) {
-    const float o = __shfl_sync(kFull, cand, c2);
-    rank += (o < cand) || (o == cand && c2 < c);
-  }
-  if (c >= 2 * P) rank = 64;
-  npm = 0.f; nperm = 0; nbit = 0;
-  for (int c2 = 0; c2 < 2 * P; ++c2) {
-    const int rk = __shfl_sync(kFull, rank, c2);
-    const float o = __shfl_sync(kFull, cand, c2);
-    if (rk == lane) { npm = o; nperm = c2 % P; nbit = c2 / P; }
+// Node metric sums: put(p, tree sum of relu(+-L[p*n + j]) over j) for
+// every p < P, in the fixed pairwise tree of `warp_tree_sum`. P*n <= 32:
+// all paths in one warp, n lanes a path; else a warp a path. By the
+// group's warps (gwarp of gwarps).
+template <class Put>
+__device__ __forceinline__ void node_sums(const float* L, int n, int ln, int P,
+                                          int positive, int gwarp, int gwarps,
+                                          int lane, Put put) {
+  if (P * n <= 32) {
+    if (gwarp == 0) {
+      float v = lane < P * n ? relu_val(L[lane], positive) : 0.f;
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) {
+        const float o = __shfl_xor_sync(kFull, v, off);
+        if (off < n) v = v + o;
+      }
+      if (lane < P * n && (lane & (n - 1)) == 0) put(lane >> ln, v);
+    }
+  } else {
+    for (int p = gwarp; p < P; p += gwarps) {
+      const float v = warp_tree_sum(L + p * n, n, positive, lane);
+      if (lane == 0) put(p, v);
+    }
   }
 }
 
@@ -465,17 +476,19 @@ __device__ __forceinline__ void fork_table(ForkTable<32>& ft, int lane, int P,
   }
 }
 
-// The R1/SPC selection of capacity 32, the whole block: each input's rank
-// by (|v|, j) among its path's n inputs; ranks < n_min give the least
-// reliable positions and |v| in order (== extract_mins' rounds wherever
-// every |v| < kBig; the chain's head applies `rstar` for the rest); and
-// the signs' parity a path (SPC) into ft.par.
+// The R1/SPC selection of the general body, by a group of warps (warp
+// runs from `base0`, `stride` threads): each input's rank by (|v|, j)
+// among its path's n inputs; ranks < n_min give the least reliable
+// positions and |v| in order (== extract_mins' rounds wherever every |v| <
+// kBig; the chain's head applies `rstar` for the rest); and the signs'
+// parity a path (SPC) into ft.par.
+template <int CAP>
 __device__ void select_rank(const float* L, int P, int n, int ln, int n_min,
-                            bool spc, Small<32>& sm, int tid, int lane,
-                            int warp) {
+                            bool spc, Small<CAP>& sm, int base0, int stride,
+                            int lane) {
   const int E = P * n;
   const int cw = (E + 31) >> 5;
-  for (int base = warp * 32; base < cw * 32; base += kThreads) {
+  for (int base = base0; base < cw * 32; base += stride) {
     const int e = base + lane;
     const bool in = e < E;
     const float v = in ? L[e] : 0.f;
@@ -525,12 +538,13 @@ __device__ void select_rank(const float* L, int P, int n, int ln, int n_min,
   }
 }
 
-// maps[i] = old maps[base(i) + perm[p]] for every map, except the map at
-// reset_base, which becomes the identity. Every thread of the block.
-template <int CAP>
-__device__ void apply_perm(unsigned char* maps, int total, const unsigned char* perm,
-                           int P, int reset_base, int tid) {
-  constexpr int kPer = maps_per_thread(CAP);
+// Capacity 32: maps[i] = old maps[base(i) + perm[p]] for every map,
+// except the map at reset_base, which becomes the identity. Every thread
+// of the block.
+__device__ void apply_perm32(unsigned char* maps, int total,
+                             const unsigned char* perm, int P, int reset_base,
+                             int tid) {
+  constexpr int kPer = kMapsPerThread32;
   unsigned char v[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
@@ -550,6 +564,27 @@ __device__ void apply_perm(unsigned char* maps, int total, const unsigned char* 
   __syncthreads();
 }
 
+// Capacity 8: every path map (P bytes at a multiple of P) permuted by the
+// node's map, new[p] = old[perm[p]], except the map at byte `reset`,
+// which becomes the identity. A thread a map (rank of `size` threads), so
+// it is in place without a barrier; the caller syncs after it.
+__device__ __forceinline__ void permute_maps(unsigned char* maps, int total,
+                                             const unsigned char* perm, int P,
+                                             int reset, int rank, int size) {
+  unsigned char pr[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) pr[p] = p < P ? perm[p] : 0;
+  for (int base = rank * P; base < total; base += size * P) {
+    unsigned char v[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (p < P) v[p] = base == reset ? (unsigned char)p : maps[base + pr[p]];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (p < P) maps[base + p] = v[p];
+  }
+}
+
 // Bits b[0..l) at stride `stride` from `x`, as a mask.
 __device__ __forceinline__ unsigned gather_bits(const unsigned char* x, int l,
                                                 int stride) {
@@ -563,11 +598,12 @@ __device__ __forceinline__ unsigned gather_bits(const unsigned char* x, int l,
 // x'_k = XOR_j x_j T[j, k], column k of T given as bit masks over j, for
 // each of `paths` interleaved vectors (path p at byte offset p). Each
 // thread takes whole columns (p, a, c) of l values, so in place is safe.
+// By `size` threads (this one `rank`); the caller syncs after it.
 __device__ void kron_stage(unsigned char* x, int stride, int pre, int l,
                            int post, int paths, const unsigned short* tcol,
-                           int tid) {
+                           int rank, int size) {
   const int units = pre * post * paths;
-  for (int w = tid; w < units; w += kThreads) {
+  for (int w = rank; w < units; w += size) {
     const int p = w % paths;
     const int ac = w / paths;
     const int a = ac / post, c = ac % post;
@@ -576,7 +612,6 @@ __device__ void kron_stage(unsigned char* x, int stride, int pre, int l,
     for (int k = 0; k < l; ++k)
       base[k * post * stride] = (unsigned char)(__popc(mask & tcol[k]) & 1u);
   }
-  __syncthreads();
 }
 
 // The suffix-composed flips of `rounds` forks, recorded in sm.perms /
@@ -609,11 +644,11 @@ __device__ unsigned block_xor(unsigned v, SM& sm, int lane, int warp) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) v ^= __shfl_xor_sync(kFull, v, off);
   if (lane == 0) sm.red[warp] = v;
-  __syncthreads();
+  block_sync<T>();
   unsigned r = 0u;
 #pragma unroll
   for (int w = 0; w < T / 32; ++w) r ^= sm.red[w];
-  __syncthreads();
+  block_sync<T>();
   return r;
 }
 
@@ -622,22 +657,22 @@ __device__ int block_sum(int v, SM& sm, int lane, int warp) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   if (lane == 0) sm.red[warp] = (unsigned)v;
-  __syncthreads();
+  block_sync<T>();
   int r = 0;
 #pragma unroll
   for (int w = 0; w < T / 32; ++w) r += (int)sm.red[w];
-  __syncthreads();
+  block_sync<T>();
   return r;
 }
 
 // The Monte-Carlo prologue of codeword b = blockIdx.x: data bits, CRC,
 // encode, BPSK-AWGN, LLRs into chan[N]; the transmitted u into ut[N]. xb
-// (N bytes) is scratch. Every thread of the block (T threads).
+// (N bytes) is scratch; st the stage tables (read after the first
+// barrier). Every thread of the block (T threads).
 template <bool BIG, int T, class SM>
-__device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
-                            unsigned char* xb, SM& sm, int tid, int lane,
-                            int warp) {
-  static_assert(!BIG || T == kThreads, "kron_stage strides by kThreads");
+__device__ void mc_prologue(const SclArgs& a, const StageTab* st,
+                            float* chan, unsigned char* ut, unsigned char* xb,
+                            SM& sm, int tid, int lane, int warp) {
   const int N = a.N, K = a.K, nh = a.N >> 1;
   const unsigned b = blockIdx.x;
   unsigned* words = reinterpret_cast<unsigned*>(chan);
@@ -658,7 +693,7 @@ __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
       }
     }
   }
-  __syncthreads();
+  block_sync<T>();
   // CRC rows: XOR of the generator masks of the set data bits
   if (a.W > 0) {
     unsigned acc = 0u;
@@ -671,25 +706,26 @@ __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
       const int slot = a.pidx[t];
       if (slot >= K) ut[t] = (unsigned char)((acc >> (slot - K)) & 1u);
     }
-    __syncthreads();
+    block_sync<T>();
   }
   for (int t = tid; t < N; t += T) xb[t] = ut[t];
-  __syncthreads();
-  if (!BIG || a.st[0].arikan_below) {
+  block_sync<T>();
+  if (!BIG || st[0].arikan_below) {
     // x = u F^{(x)m}: log2 N stages of butterfly XORs
     for (int h = nh; h >= 1; h >>= 1) {
       for (int e = tid; e < nh; e += T) {
         const int i = (e / h) * 2 * h + (e % h);
         xb[i] ^= xb[i + h];
       }
-      __syncthreads();
+      block_sync<T>();
     }
   } else {
     // x = u (K_1 (x) ... (x) K_m): one Kronecker stage per kernel
     for (int s = 1; s <= a.m; ++s) {
-      const StageTab& st = a.st[s];
-      const int l = st.k.l;
-      kron_stage(xb, 1, N / (l * st.n), l, st.n, 1, st.k.kcol, tid);
+      const StageTab& ts = st[s];
+      const int l = ts.k.l;
+      kron_stage(xb, 1, N / (l * ts.n), l, ts.n, 1, ts.k.kcol, tid, T);
+      block_sync<T>();
     }
   }
   // llr = (2 / sigma^2) * ((1 - 2x) + sigma * gauss); Box-Muller rows
@@ -712,7 +748,7 @@ __device__ void mc_prologue(const SclArgs& a, float* chan, unsigned char* ut,
     for (int t = tid; t < N; t += T)
       chan[t] = scale * ((1.f - 2.f * (float)xb[t]) + sg * g[t]);
   }
-  __syncthreads();
+  block_sync<T>();
 }
 
 // The coset-adjusted output LLRs v[k] (k < l) of position j of path p at an
@@ -736,38 +772,48 @@ __device__ __forceinline__ void big_view(const BigKernel& K, const float* row,
 }
 
 // DOWN at an l > 2 stage: input i's LLR of every (path, position) into
-// out[P, n]. The whole block; ends with a barrier.
+// out[P, n] (n = 1 << ln). The whole block of T threads; capacity 32 ends
+// with a barrier, capacity 8 leaves it to the caller's.
+template <int CAP, int T>
 __device__ void big_down(const BigKernel& K, int i, float* out,
                          const float* x, const float* par,
                          const unsigned char* rl, const unsigned char* dec0,
-                         const unsigned char* rd, int P, int n,
+                         const unsigned char* rd, int P, int n, int ln,
                          float (*redf)[2], int tid, int lane, int warp) {
   const int l = K.l;
   const int E = P * n;
   auto row_of = [&](int p) { return par ? par + rl[p] * l * n : x; };
+  // element e = (path p, position j): capacity 8 shifts by log2 n;
+  // capacity 32 keeps the division its instances were timed with
+  auto at = [&](int e, int& p, int& j) {
+    if constexpr (CAP == 8) { p = e >> ln; j = e & (n - 1); }
+    else { p = e / n; j = e % n; }
+  };
   float v[bigstage::kMaxL];
   if (i == l - 1) {
-    for (int e = tid; e < E; e += kThreads) {
-      const int p = e / n, j = e % n;
+    for (int e = tid; e < E; e += T) {
+      int p, j;
+      at(e, p, j);
       big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
       out[e] = bigstage::last_llr(K, v);
     }
-    __syncthreads();
+    if constexpr (CAP == 32) block_sync<T>();
     return;
   }
   const int S = K.states[i];
   if (S) {
     // syndrome trellis: S lanes a position, warp-uniform rounds
-    const int per = kThreads / S;
+    const int per = T / S;
     for (int base = 0; base < E; base += per) {
       const int e0 = base + tid / S;
       const int e = e0 < E ? e0 : E - 1;
-      const int p = e / n, j = e % n;
+      int p, j;
+      at(e, p, j);
       big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
       const float r = bigstage::trellis_llr(K, i, v, lane & (S - 1));
       if (e0 < E && (lane & (S - 1)) == 0) out[e] = r;
     }
-    __syncthreads();
+    if constexpr (CAP == 32) block_sync<T>();
     return;
   }
   // tail table: G lanes a position share the columns it walks, up to the
@@ -775,25 +821,26 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
   // where the quad tables pay (bigstage::table_max)
   const int walk = bigstage::table_walk(K, i);
   int G = bigstage::table_quads(K, i, 16) ? 16 : 1;
-  while (G < kThreads && G < walk && E * G * 2 <= kThreads) G *= 2;
+  while (G < T && G < walk && E * G * 2 <= T) G *= 2;
   const bool quads = bigstage::table_quads(K, i, G);
-  const int per = kThreads / G;
+  const int per = T / G;
   const int gw = G < 32 ? G : 32;            // lanes of the group in a warp
   for (int base = 0; base < E; base += per) {
     const int e0 = base + tid / G;
     const int e = e0 < E ? e0 : E - 1;
-    const int p = e / n, j = e % n;
+    int p, j;
+    at(e, p, j);
     const int g = tid % G;
     big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
     float m0, m1;
     bigstage::table_max(K, i, v, g, G, walk, quads, m0, m1);
     m0 = bigstage::group_max(m0, gw);
     m1 = bigstage::group_max(m1, gw);
-    if (G <= 32) {
+    if (T == 32 || G <= 32) {
       if (e0 < E && g == 0) out[e] = 0.5f * (m0 - m1);
     } else {
       if (lane == 0) { redf[warp][0] = m0; redf[warp][1] = m1; }
-      __syncthreads();
+      block_sync<T>();
       if (g == 0 && e0 < E) {
         for (int w = warp + 1; w < warp + G / 32; ++w) {
           m0 = fmaxf(m0, redf[w][0]);
@@ -801,22 +848,80 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
         }
         out[e] = 0.5f * (m0 - m1);
       }
-      __syncthreads();
+      block_sync<T>();
     }
   }
-  __syncthreads();
+  if constexpr (CAP == 32) block_sync<T>();
 }
 
-template <int SRC, int OUT, bool BIG, int CAP>
+// ---- the general body at list capacity 8: the l > 2 instances at L <= 8
+// (bch_sc's K1, K2, K4, K5) and K3 `scl_subtree` ----
+//
+// The op-kind clock (kernel_times --split --only bch_sc, PERF.md) put
+// bch_sc's K5 (L=1) at 1.03M cycles a block of 256 threads, 68% of it in
+// the l > 2 DOWNs, ~6.5k cycles each for a handful of positions (one at
+// the second stage): the work was small, the block wide. Every op ended
+// in barriers over 8 warps (a tail table of few positions in two more),
+// `big_down` divided by a run-time n, the stage's kernel tables were read
+// from device memory inside the trellis and table loops, and 64 registers
+// spilled 152-180 B. At L=8 (K1, 2.10M cycles) the shuffle forks cost
+// 6.7k cycles a fork round and the LEAF/REP forks 19% of the block. This
+// design keeps every decision and metric bit for bit (the marginal's
+// arithmetic is `big_stage.cuh`'s) and changes how the block is organised:
+// - One warp a codeword as a rule (`general_threads`): a barrier is a
+//   __syncwarp. The block takes a second warp only where the blocks an
+//   SM's shared memory holds would bring too few warps (the golden mixed
+//   spec, N=512, from L=6 or 7); bch_sc takes one warp at every L. PERF.md
+//   (§6) has the times at 32 and 64 threads and why no wider block is
+//   kept.
+// - 128 registers a thread (16 warps an SM): at 80 and 64 these
+//   instances spilled and ran slower (PERF.md).
+// - The stage tables (StageTab with its BigKernel) are copied once to
+//   shared memory; the op table is read one op ahead.
+// - In a block of more than one warp, an op of P * n <= 32 elements (and
+//   every LEAF) runs in warp 0 alone with __syncwarp (as the Arikan
+//   capacity-8 body does); an l > 2 DOWN always takes the whole block.
+// - Forks rank from a candidate table (`fork_rank`, shared with the
+//   Arikan capacity-8 body); the R1/SPC selection is the one-pass
+//   `select_rank` with the `rstar` rule at kBig, as at capacity 32.
+// - A thread permutes whole path maps (`permute_maps`): no barrier inside
+//   and no bound on the maps a thread holds.
+// - The l > 2 element loops shift by log2 n.
+constexpr int kBig8Registers = 128;                        // a thread, capacity 8
+
+// Bytes of the stage tables a capacity-8 block copies to the start of its
+// dynamic shared memory (16-aligned).
+__host__ __device__ inline int stage_copy_bytes(int m) {
+  return ((m + 1) * (int)sizeof(StageTab) + 15) & ~15;
+}
+
+template <int SRC, int OUT, bool BIG, int CAP, int T>
 __device__ __forceinline__ void scl_body(const SclArgs& a) {
   static_assert(OUT != kCounters || SRC == kMonteCarlo,
                 "counting errors needs the transmitted u");
   static_assert((OUT == kSubtree) == (SRC == kPathBound),
                 "a depth-1 child takes a path-bound input");
+  static_assert(CAP == 8 || T == kThreads, "capacity 32 runs kThreads");
+  constexpr int kW = T / 32;
+  // capacity 8 on more than one warp: small ops run in warp 0 alone
+  constexpr bool kGroups = CAP == 8 && T > 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Small<CAP> sm;
   const int N = a.N, m = a.m, P = a.P, Q = a.Q, K = a.K, W = a.W;
-  float* lam = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // capacity 8: the stage tables in shared memory for the whole decode
+  const int st_bytes = CAP == 8 ? stage_copy_bytes(m) : 0;
+  const StageTab* const st =
+      CAP == 8 ? reinterpret_cast<const StageTab*>(smem) : a.st;
+  if constexpr (CAP == 8) {
+    const unsigned* from = reinterpret_cast<const unsigned*>(a.st);
+    unsigned* to = reinterpret_cast<unsigned*>(smem);
+    for (int i = tid; i < (m + 1) * (int)sizeof(StageTab) / 4; i += T)
+      to[i] = from[i];
+  }
+  float* lam = reinterpret_cast<float*>(smem + st_bytes);
   float* chan = lam + a.n_lam;                           // kMonteCarlo only
   unsigned char* dec =
       reinterpret_cast<unsigned char*>(chan + (SRC == kMonteCarlo ? N : 0));
@@ -830,16 +935,13 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   unsigned char* netmap = maps + a.n_maps;
   const int n_maps = a.n_maps + (SRC == kPathBound ? P : 0);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   if (tid <= m) {
-    const StageTab& T = a.st[tid];
-    sm.stage[tid] = make_int4(T.n, T.loff, T.doff, T.mbase);
+    const StageTab& ts = a.st[tid];
+    sm.stage[tid] = make_int4(ts.n, ts.loff, ts.doff, ts.mbase);
   }
   const float* x;
   if constexpr (SRC == kMonteCarlo) {
-    mc_prologue<BIG, kThreads>(a, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
+    mc_prologue<BIG, T>(a, st, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
     clk_mark(kClkPrologue);
     x = chan;
   } else if constexpr (SRC == kPathBound) {
@@ -857,7 +959,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   auto rlam = [&](int s) { return maps + sm.stage[s].w; };
   auto rdec_base = [&](int s, int c) { return sm.stage[s].w + (1 + c) * P; };
 
-  for (int i = tid; i < n_maps; i += kThreads) maps[i] = (unsigned char)(i % P);
+  for (int i = tid; i < n_maps; i += T) maps[i] = (unsigned char)(i % P);
   if (tid < P) {
     if constexpr (SRC == kPathBound) sm.pm[tid] = a.pm_in[blockIdx.x * P + tid];
     else sm.pm[tid] = (tid == 0) ? 0.f : kBig;
@@ -866,21 +968,48 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if (tid < 64)
       reinterpret_cast<float*>(sm.cand)[tid] =
           (tid & 31) < P ? 0.f : __int_as_float(0x7fffffff);   // NaN
-    if (tid < 32) sm.par[tid] = 0u;
   }
-  __syncthreads();
+  if (tid < CAP) sm.par[tid] = 0u;
+  block_sync<T>();
   clk_mark(kClkSetup);
 
   int q = 0;   // trajectory span of the next node op
   // pm in order by (value, path): [0, kBig, ...] is; K3's pm_in is not
   bool pm_sorted = SRC != kPathBound;
+  bool prev_small = false;
+  int4 nxt = CAP == 8 ? a.ops[0] : make_int4(0, 0, 0, 0);
   for (int o = 0; o < a.n_ops; ++o) {
-    const int4 op = a.ops[o];
+    int4 op;
+    if constexpr (CAP == 8) {
+      op = nxt;
+      if (o + 1 < a.n_ops) nxt = a.ops[o + 1];
+    } else {
+      op = a.ops[o];
+    }
     const int kind = op.x, lvl = op.y, t0 = op.z, child = op.w;
     const int n = sm.stage[lvl].x;
     const int ln = __ffs(n) - 1;
+    const bool down = kind == DOWN_FRESH || kind == DOWN_DYN;
+    // the group that runs this op: warp 0 alone for an op of P*n <= 32
+    // elements and every LEAF (never an l > 2 DOWN), else the block
+    const bool small =
+        kGroups && (kind >= LEAF || (P * n <= 32 && !(BIG && down && st[lvl].k.l > 2)));
+    if constexpr (kGroups) {
+      if (!small && prev_small) __syncthreads();
+      prev_small = small;
+      if (small && warp != 0) {
+        if (kind >= R0) ++q;
+        continue;
+      }
+    }
+    const int gsize = small ? 32 : T, grank = small ? lane : tid;
+    const int gwarps = small ? 1 : kW, gwarp = small ? 0 : warp;
+    auto gsync = [&]() {
+      if (small) __syncwarp();
+      else block_sync<T>();
+    };
 
-    if (kind == DOWN_FRESH || kind == DOWN_DYN) {
+    if (down) {
       const int s = lvl;
       float* out = lam_at(s);
       // the parent block and its path map: the LLR buffer of stage s-1, or
@@ -893,19 +1022,19 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       const unsigned char* d0 = dec_at(s, 0);
       const unsigned char* rd0 = maps + rdec_base(s, 0);
       if constexpr (BIG) {
-        const BigKernel& bk = a.st[s].k;
+        const BigKernel& bk = st[s].k;
         if (bk.l > 2) {
           const int bi = kind == DOWN_FRESH ? 0 : child;
-          big_down(bk, bi, out, x, par, rl, d0, rd0, P, n, sm.redf, tid,
-                   lane, warp);
+          big_down<CAP, T>(bk, bi, out, x, par, rl, d0, rd0, P, n, ln, sm.redf,
+                           tid, lane, warp);
           if (tid < P) rlam(s)[tid] = (unsigned char)tid;
-          __syncthreads();
+          block_sync<T>();
           clk_mark(bi == bk.l - 1 ? kClkBigLast
                    : bk.states[bi] ? kClkBigTrellis : kClkBigTable);
           continue;
         }
       }
-      for (int e = tid; e < P * n; e += kThreads) {
+      for (int e = grank; e < P * n; e += gsize) {
         const int p = e >> ln, j = e & (n - 1);
         float a, b;
         if (par == nullptr) {
@@ -926,8 +1055,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         }
         out[p * n + j] = v;
       }
-      if (tid < P) rlam(s)[tid] = (unsigned char)tid;
-      __syncthreads();
+      if (grank < P) rlam(s)[grank] = (unsigned char)grank;
+      gsync();
       clk_mark(kClkDown);
       continue;
     }
@@ -936,13 +1065,13 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       const int s = lvl;
       unsigned char* dst = dec_at(s - 1, child);
       if constexpr (BIG) {
-        const BigKernel& bk = a.st[s].k;
+        const BigKernel& bk = st[s].k;
         const int l = bk.l;
         if (l > 2) {
           // x_k = XOR_j u_j K[j, k] of every (path, position)
           const unsigned char* d0 = dec_at(s, 0);
           const unsigned char* rd0 = maps + rdec_base(s, 0);
-          for (int e = tid; e < P * n; e += kThreads) {
+          for (int e = grank; e < P * n; e += gsize) {
             const int p = e >> ln, j = e & (n - 1);
             unsigned u = 0u;
             for (int c = 0; c < l; ++c)
@@ -951,8 +1080,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
               dst[p * l * n + k * n + j] =
                   (unsigned char)(__popc(u & bk.kcol[k]) & 1u);
           }
-          if (tid < P) maps[rdec_base(s - 1, child) + tid] = (unsigned char)tid;
-          __syncthreads();
+          if (grank < P) maps[rdec_base(s - 1, child) + grank] = (unsigned char)grank;
+          gsync();
           clk_mark(kClkUp);
           continue;
         }
@@ -961,15 +1090,15 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       const unsigned char* d1 = dec_at(s, 1);
       const unsigned char* rd0 = maps + rdec_base(s, 0);
       const unsigned char* rd1 = maps + rdec_base(s, 1);
-      for (int e = tid; e < P * n; e += kThreads) {
+      for (int e = grank; e < P * n; e += gsize) {
         const int p = e >> ln, j = e & (n - 1);
         const unsigned char b0 = d0[rd0[p] * n + j];
         const unsigned char b1 = d1[rd1[p] * n + j];
         dst[p * 2 * n + j] = b0 ^ b1;
         dst[p * 2 * n + n + j] = b1;
       }
-      if (tid < P) maps[rdec_base(s - 1, child) + tid] = (unsigned char)tid;
-      __syncthreads();
+      if (grank < P) maps[rdec_base(s - 1, child) + grank] = (unsigned char)grank;
+      gsync();
       clk_mark(kClkUp);
       continue;
     }
@@ -981,40 +1110,52 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const int reset = rdec_base(d, child);
 
     if (kind == R0) {
-      for (int p = warp; p < P; p += kWarps) {
-        const float sum = warp_tree_sum(L + p * n, n, 0, lane);
-        if (lane == 0) sm.pm[p] = sm.pm[p] + sum;
+      if constexpr (CAP == 8) {
+        node_sums(L, n, ln, P, 0, gwarp, gwarps, lane,
+                  [&](int p, float v) { sm.pm[p] = sm.pm[p] + v; });
+      } else {
+        for (int p = warp; p < P; p += kWarps) {
+          const float sum = warp_tree_sum(L + p * n, n, 0, lane);
+          if (lane == 0) sm.pm[p] = sm.pm[p] + sum;
+        }
       }
-      for (int e = tid; e < P * n; e += kThreads) {
+      for (int e = grank; e < P * n; e += gsize) {
         const int p = e >> ln, j = e & (n - 1);
         D[e] = 0;
         traj[(t0 + j) * P + p] = 0;
       }
-      if (tid < P) {
-        tperm[q * P + tid] = (unsigned char)tid;
-        maps[reset + tid] = (unsigned char)tid;
+      if (grank < P) {
+        tperm[q * P + grank] = (unsigned char)grank;
+        maps[reset + grank] = (unsigned char)grank;
       }
       ++q;
       pm_sorted = P == 1;
-      __syncthreads();
+      gsync();
       clk_mark(kClkR0);
       continue;
     }
 
     if (kind == REP || kind == LEAF || kind == LEAF_FROZEN) {
       if (kind == REP) {
-        for (int p = warp; p < P; p += kWarps) {
-          const float a = warp_tree_sum(L + p * n, n, 0, lane);
-          const float b = warp_tree_sum(L + p * n, n, 1, lane);
-          if (lane == 0) { sm.s0[p] = a; sm.s1[p] = b; }
+        if constexpr (CAP == 8) {
+          node_sums(L, n, ln, P, 0, gwarp, gwarps, lane,
+                    [&](int p, float v) { sm.s0[p] = v; });
+          node_sums(L, n, ln, P, 1, gwarp, gwarps, lane,
+                    [&](int p, float v) { sm.s1[p] = v; });
+        } else {
+          for (int p = warp; p < P; p += kWarps) {
+            const float a = warp_tree_sum(L + p * n, n, 0, lane);
+            const float b = warp_tree_sum(L + p * n, n, 1, lane);
+            if (lane == 0) { sm.s0[p] = a; sm.s1[p] = b; }
+          }
         }
-      } else if (tid < P) {
-        sm.s0[tid] = fmaxf(-L[tid], 0.f);
-        sm.s1[tid] = fmaxf(L[tid], 0.f);
+      } else if (grank < P) {
+        sm.s0[grank] = fmaxf(-L[grank], 0.f);
+        sm.s1[grank] = fmaxf(L[grank], 0.f);
       }
-      __syncthreads();
+      gsync();
       clk_mark(kClkRepSums);
-      if (warp == 0) {
+      if (gwarp == 0) {
         if (kind == LEAF_FROZEN || P == 1) {
           if (lane < P) {
             const float a = sm.s0[lane], b = sm.s1[lane];
@@ -1037,7 +1178,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
             }
             fork_table(sm, lane, P, false, npm, nperm, nbit);
           } else {
-            fork2(lane, P, pmv, a, b, npm, nperm, nbit);
+            fork_rank(sm, lane, P, pmv, a, b, npm, nperm, nbit);
           }
           if (lane < P) {
             sm.pm[lane] = npm;
@@ -1046,20 +1187,21 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
           }
         }
       }
-      __syncthreads();
+      gsync();
       clk_mark(kClkRepFork);
-      apply_perm<CAP>(maps, n_maps, sm.nmap, P, reset, tid);
+      if constexpr (CAP == 32) apply_perm32(maps, n_maps, sm.nmap, P, reset, tid);
+      else permute_maps(maps, n_maps, sm.nmap, P, reset, grank, gsize);
       clk_mark(kClkPerm);
-      for (int e = tid; e < P * n; e += kThreads) {
+      for (int e = grank; e < P * n; e += gsize) {
         const int p = e >> ln, j = e & (n - 1);
         const unsigned char bit = sm.bit[p];
         D[e] = bit;
         traj[(t0 + j) * P + p] = (j == n - 1) ? bit : 0;
       }
-      if (tid < P) tperm[q * P + tid] = sm.nmap[tid];
+      if (grank < P) tperm[q * P + grank] = sm.nmap[grank];
       ++q;
       pm_sorted = kind != LEAF_FROZEN || P == 1;
-      __syncthreads();
+      gsync();
       clk_mark(kClkRepFork);
       continue;
     }
@@ -1068,182 +1210,148 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const bool spc = (kind == SPC);
     const int rounds = spc ? (P == 1 ? 0 : min(P, n - 1)) : min(P - 1, n);
     const int n_min = spc ? rounds + 1 : rounds;
+    const int first = spc ? 1 : 0;
     clk_count(kClkRounds, rounds);
-    if constexpr (CAP == 32) {
-      const int first = spc ? 1 : 0;
-      // 1. the least reliable positions and the parity, one pass
-      select_rank(L, P, n, ln, n_min, spc, sm, tid, lane, warp);
-      __syncthreads();
-      clk_mark(kClkSelect);
-      // 2. the fork chain, warp 0: metrics, node map and eta in registers
-      if (warp == 0) {
-        int nm = lane < P ? lane : 0;
-        float pmv = lane < P ? sm.pm[lane] : 0.f;
-        int eta = 0;
-        if (lane < P) {
-          // inputs at or above kBig: the rounds of extract_mins, which mark
-          // a chosen position as kBig, choose one position again from the
-          // first round whose least unchosen |v| is >= kBig
-          const int rs = sm.rstar[lane];
-          if (rs < n_min) {
-            const int start = rs > 0 ? rs : 1;
-            int e = 0x7fff;
-            for (int r = 0; r < start; ++r) e = min(e, (int)sm.poss[r][lane]);
-            if (rs > 0 && sm.vals[rs][lane] == kBig)
-              e = min(e, (int)sm.poss[rs][lane]);
-            for (int r = start; r < n_min; ++r) {
-              sm.poss[r][lane] = (short)e;
-              sm.vals[r][lane] = kBig;
-            }
-          }
-          if (spc) {
-            eta = (int)sm.par[lane];
-            sm.par[lane] = 0u;
-            pmv = pmv + (float)eta * sm.vals[0][lane];   // mandatory parity fix
+    // 1. the least reliable positions and the parity, one pass
+    select_rank<CAP>(L, P, n, ln, n_min, spc, sm, gwarp * 32, gsize, lane);
+    gsync();
+    clk_mark(kClkSelect);
+    // 2. the fork chain, warp 0: metrics, node map and eta in registers
+    if (gwarp == 0) {
+      int nm = lane < P ? lane : 0;
+      float pmv = lane < P ? sm.pm[lane] : 0.f;
+      int eta = 0;
+      if (lane < P) {
+        // inputs at or above kBig: the rounds of extract_mins, which mark
+        // a chosen position as kBig, choose one position again from the
+        // first round whose least unchosen |v| is >= kBig
+        const int rs = sm.rstar[lane];
+        if (rs < n_min) {
+          const int start = rs > 0 ? rs : 1;
+          int e = 0x7fff;
+          for (int r = 0; r < start; ++r) e = min(e, (int)sm.poss[r][lane]);
+          if (rs > 0 && sm.vals[rs][lane] == kBig)
+            e = min(e, (int)sm.poss[rs][lane]);
+          for (int r = start; r < n_min; ++r) {
+            sm.poss[r][lane] = (short)e;
+            sm.vals[r][lane] = kBig;
           }
         }
-        __syncwarp();
-        float* cand = reinterpret_cast<float*>(sm.cand);
-        for (int r = 0; r < rounds; ++r) {
+        if (spc) {
+          eta = (int)sm.par[lane];
+          sm.par[lane] = 0u;
+          pmv = pmv + (float)eta * sm.vals[0][lane];   // mandatory parity fix
+        }
+      }
+      __syncwarp();
+      for (int r = 0; r < rounds; ++r) {
+        float npm; int nperm, nbit;
+        if constexpr (CAP == 32) {
+          float* cand = reinterpret_cast<float*>(sm.cand);
           if (lane < P) {
             float pen = sm.vals[r + first][nm];
             if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
             cand[lane] = pmv + 0.f;
             cand[32 + lane] = pmv + pen;
           }
-          float npm; int nperm, nbit;
           fork_table(sm, lane, P, r > 0 || (pm_sorted && !spc), npm, nperm, nbit);
-          nm = __shfl_sync(kFull, nm, nperm);
-          eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
-          pmv = npm;
-          if (lane < P) {
-            sm.perms[r][lane] = (unsigned char)nperm;
-            sm.flips[r][lane] = (unsigned char)nbit;
-          }
-        }
-        __syncwarp();
-        if (lane < P) {
-          defer_flips(sm, rounds, lane);
-          sm.pm[lane] = pmv;
-          sm.nmap[lane] = (unsigned char)nm;
-          sm.bit[lane] = (unsigned char)eta;
-          tperm[q * P + lane] = (unsigned char)nm;
-        }
-      }
-      pm_sorted = P == 1 || rounds > 0 || (pm_sorted && !spc);
-      __syncthreads();
-      clk_mark(kClkChain);
-    } else {
-      for (int p = warp; p < P; p += kWarps) {
-        const float* v = L + p * n;
-        warp_extract(v, n, n_min, lane, sm, p);
-        if (spc) {
-          int par = 0;
-          for (int j = lane; j < n; j += 32) par ^= (v[j] < 0.f);
-#pragma unroll
-          for (int off = 16; off >= 1; off >>= 1)
-            par ^= __shfl_xor_sync(kFull, par, off);
-          if (lane == 0) sm.bit[p] = (unsigned char)par;
-        }
-      }
-      __syncthreads();
-      clk_mark(kClkSelect);
-      if (warp == 0) {
-        int nm = lane < P ? lane : 0;
-        float pmv = lane < P ? sm.pm[lane] : 0.f;
-        int eta = 0;
-        if (spc && lane < P) {
-          eta = sm.bit[lane];
-          pmv = pmv + (float)eta * sm.vals[0][lane];     // mandatory parity fix
-        }
-        const int first = spc ? 1 : 0;
-        for (int r = 0; r < rounds; ++r) {
+        } else {
           float pen = 0.f;
           if (lane < P) {
             pen = sm.vals[r + first][nm];
             if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
           }
-          float npm; int nperm, nbit;
-          fork2(lane, P, pmv, 0.f, pen, npm, nperm, nbit);
-          nm = __shfl_sync(kFull, nm, nperm);
-          eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
-          pmv = npm;
-          if (lane < P) {
-            sm.perms[r][lane] = (unsigned char)nperm;
-            sm.flips[r][lane] = (unsigned char)nbit;
-          }
+          fork_rank(sm, lane, P, pmv, 0.f, pen, npm, nperm, nbit);
         }
-        __syncwarp();
+        nm = __shfl_sync(kFull, nm, nperm);
+        eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
+        pmv = npm;
         if (lane < P) {
-          defer_flips(sm, rounds, lane);
-          sm.pm[lane] = pmv;
-          sm.nmap[lane] = (unsigned char)nm;
-          sm.bit[lane] = (unsigned char)eta;
-          tperm[q * P + lane] = (unsigned char)nm;
+          sm.perms[r][lane] = (unsigned char)nperm;
+          sm.flips[r][lane] = (unsigned char)nbit;
         }
       }
-      __syncthreads();
-      clk_mark(kClkChain);
+      __syncwarp();
+      if (lane < P) {
+        defer_flips(sm, rounds, lane);
+        sm.pm[lane] = pmv;
+        sm.nmap[lane] = (unsigned char)nm;
+        sm.bit[lane] = (unsigned char)eta;
+        tperm[q * P + lane] = (unsigned char)nm;
+      }
     }
-    for (int e = tid; e < P * n; e += kThreads) {
+    pm_sorted = P == 1 || rounds > 0 || (pm_sorted && !spc);
+    gsync();
+    clk_mark(kClkChain);
+    // 3. decisions x, the path maps, and u = x K^-1 below into the rows
+    for (int e = grank; e < P * n; e += gsize) {
       const int p = e >> ln, j = e & (n - 1);
       const int src = sm.nmap[p];
       unsigned char xb = L[src * n + j] < 0.f;
       if (spc && sm.poss[0][src] == j) xb ^= sm.bit[p];
-      const int first = spc ? 1 : 0;
       for (int r = 0; r < rounds; ++r)
         if (sm.poss[r + first][src] == j) xb ^= sm.flipfin[r][p];
       D[e] = xb;
       traj[(t0 + j) * P + p] = xb;
     }
     clk_mark(kClkDecide);
-    apply_perm<CAP>(maps, n_maps, sm.nmap, P, reset, tid);
+    if constexpr (CAP == 32) {
+      apply_perm32(maps, n_maps, sm.nmap, P, reset, tid);
+    } else {
+      permute_maps(maps, n_maps, sm.nmap, P, reset, grank, gsize);
+      gsync();
+    }
     clk_mark(kClkPerm);
-    if (!BIG || a.st[d].arikan_below) {
+    if (!BIG || st[d].arikan_below) {
       // u = x F^{(x)k}: in-place butterflies over the span's trajectory rows
       for (int h = n >> 1; h >= 1; h >>= 1) {
-        for (int e = tid; e < P * (n >> 1); e += kThreads) {
+        for (int e = grank; e < P * (n >> 1); e += gsize) {
           const int p = e / (n >> 1), k = e % (n >> 1);
           const int i = (k / h) * 2 * h + (k % h);
           traj[(t0 + i) * P + p] ^= traj[(t0 + i + h) * P + p];
         }
-        __syncthreads();
+        gsync();
       }
     } else {
       // u = x (K_{d+1} (x) ... (x) K_m)^-1, one stage per kernel below
       for (int s = d + 1; s <= m; ++s) {
-        const StageTab& T = a.st[s];
-        const int l = T.k.l;
-        kron_stage(traj + t0 * P, P, n / (l * T.n), l, T.n, P, T.icol, tid);
+        const StageTab& ts = st[s];
+        const int l = ts.k.l;
+        kron_stage(traj + t0 * P, P, n / (l * ts.n), l, ts.n, P, ts.icol,
+                   grank, gsize);
+        gsync();
       }
     }
     clk_mark(kClkInverse);
     ++q;
+  }
+  if constexpr (kGroups) {
+    if (prev_small) __syncthreads();
   }
 
   const size_t b = blockIdx.x;
   if constexpr (OUT == kTrajectory || OUT == kSubtree) {
     // the genealogy, [B, ...]-major: one contiguous run per codeword
     uint8_t* tb = a.traj_bit + b * N * P;
-    for (int i = tid; i < N * P; i += kThreads) tb[i] = traj[i];
+    for (int i = tid; i < N * P; i += T) tb[i] = traj[i];
     uint8_t* tp = a.traj_perm + b * Q * P;
-    for (int i = tid; i < Q * P; i += kThreads) tp[i] = tperm[i];
+    for (int i = tid; i < Q * P; i += T) tp[i] = tperm[i];
     if (tid < P) a.pm[b * P + tid] = sm.pm[tid];
     if constexpr (SRC == kMonteCarlo) {
       int8_t* u = a.u_true + b * N;
-      for (int t = tid; t < N; t += kThreads) u[t] = (int8_t)ut[t];
+      for (int t = tid; t < N; t += T) u[t] = (int8_t)ut[t];
     }
     if constexpr (OUT == kSubtree) {
       // the net survival map, and the root re-encode x_k = XOR_j u_j
       // K_1[j, k] of the stage-1 children (through their maps: final path
       // indexing), what the parent's UP would write
       if (tid < P) a.netp[b * P + tid] = netmap[tid];
-      const BigKernel& bk = a.st[1].k;
+      const BigKernel& bk = st[1].k;
       const int l = bk.l, n = sm.stage[1].x;
       const unsigned char* d0 = dec_at(1, 0);
       const unsigned char* rd0 = maps + rdec_base(1, 0);
       uint8_t* xo = a.xblk + b * P * N;
-      for (int e = tid; e < P * n; e += kThreads) {
+      for (int e = tid; e < P * n; e += T) {
         const int p = e / n, j = e % n;
         unsigned u = 0u;
         for (int c = 0; c < l; ++c)
@@ -1263,8 +1371,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       s = tperm[qq * P + s];
     }
   }
-  __syncthreads();
-  for (int p = warp; p < P; p += kWarps) {
+  block_sync<T>();
+  for (int p = warp; p < P; p += kW) {
     unsigned acc = 0u, rec = 0u;
     if (W > 0) {
       for (int t = lane; t < N; t += 32) {
@@ -1282,7 +1390,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     }
     if (lane == 0) sm.ok[p] = (W == 0 || (acc ^ a.offmask) == rec) ? 1.f : 0.f;
   }
-  __syncthreads();
+  block_sync<T>();
   if (tid == 0) {
     int best = 0;
     float bs = sm.pm[0] + kBig * (1.f - sm.ok[0]);
@@ -1296,21 +1404,21 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       a.ok[b] = sm.ok[best] > 0.5f;
     }
   }
-  __syncthreads();
+  block_sync<T>();
   const int best = sm.best;
   if constexpr (OUT == kSelect) {
     int8_t* u = a.u + b * N;
-    for (int t = tid; t < N; t += kThreads)
+    for (int t = tid; t < N; t += T)
       u[t] = (int8_t)traj[t * P + sidx[a.qrow[t] * P + best]];
   } else {
     // errors of the best path on the data rows (CRC rows do not count)
     int err = 0;
-    for (int t = tid; t < N; t += kThreads) {
+    for (int t = tid; t < N; t += T) {
       const int k = a.pidx[t];
       if (k < 0 || k >= K) continue;
       err += traj[t * P + sidx[a.qrow[t] * P + best]] != ut[t];
     }
-    err = block_sum<kThreads>(err, sm, lane, warp);
+    err = block_sum<T>(err, sm, lane, warp);
     if (tid == 0) {
       a.counters[b] = err > 0;
       a.counters[a.B + b] = err;
@@ -1430,47 +1538,6 @@ __device__ __forceinline__ void fast_perm(uint2* maps, int n_maps,
   }
 }
 
-// 2P -> P fork, warp 0, all 32 lanes (P <= 8). Lane p < P holds path p's
-// metric and penalties; lane r < P gets survivor r: metric, parent path,
-// bit. Candidate c = bit * P + p ranks by (metric, c) against all 2P,
-// read from shared memory (== lax.top_k on negated metrics, ties
-// included, as `fork2`).
-__device__ __forceinline__ void fork_rank(Fast& sm, int lane, int P, float pm_p,
-                                          float pen0_p, float pen1_p,
-                                          float& npm, int& nperm, int& nbit) {
-  float* cand = reinterpret_cast<float*>(sm.cand);
-  if (lane < P) {
-    cand[lane] = pm_p + pen0_p;
-    cand[P + lane] = pm_p + pen1_p;
-  }
-  __syncwarp();
-  const float v = cand[lane & 15];
-  int r4[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 o4 = sm.cand[i];
-    const float o[4] = {o4.x, o4.y, o4.z, o4.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int c2 = 4 * i + k;
-      r4[i] += (c2 < 2 * P) && ((o[k] < v) || (o[k] == v && c2 < lane));
-    }
-  }
-  const int rank = (r4[0] + r4[1]) + (r4[2] + r4[3]);
-  if (lane < 2 * P && rank < P) {
-    sm.spm[rank] = v;
-    sm.src[rank] = (unsigned char)lane;
-  }
-  __syncwarp();
-  npm = 0.f; nperm = 0; nbit = 0;
-  if (lane < P) {
-    const int c = sm.src[lane];
-    npm = sm.spm[lane];
-    nbit = c >= P;
-    nperm = c - (nbit ? P : 0);
-  }
-}
-
 // u = x F^(x)k over each aligned run of n bits of w (n a power of two,
 // n <= 32): bit i (i & h == 0) ^= bit i + h, for h < n.
 __device__ __forceinline__ unsigned arikan_word(unsigned w, int n) {
@@ -1480,32 +1547,6 @@ __device__ __forceinline__ unsigned arikan_word(unsigned w, int n) {
   if (n > 8) w ^= (w >> 8) & 0x00ff00ffu;
   if (n > 16) w ^= (w >> 16) & 0x0000ffffu;
   return w;
-}
-
-// Node metric sums: put(p, tree sum of relu(+-L[p*n + j]) over j) for
-// every p < P, in the fixed pairwise tree of `warp_tree_sum`. P*n <= 32:
-// all paths in one warp, n lanes a path; else a warp a path. By the
-// group's warps (gwarp of gwarps).
-template <class Put>
-__device__ __forceinline__ void node_sums(const float* L, int n, int ln, int P,
-                                          int positive, int gwarp, int gwarps,
-                                          int lane, Put put) {
-  if (P * n <= 32) {
-    if (gwarp == 0) {
-      float v = lane < P * n ? relu_val(L[lane], positive) : 0.f;
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) {
-        const float o = __shfl_xor_sync(kFull, v, off);
-        if (off < n) v = v + o;
-      }
-      if (lane < P * n && (lane & (n - 1)) == 0) put(lane >> ln, v);
-    }
-  } else {
-    for (int p = gwarp; p < P; p += gwarps) {
-      const float v = warp_tree_sum(L + p * n, n, positive, lane);
-      if (lane == 0) put(p, v);
-    }
-  }
 }
 
 template <int SRC, int OUT, int T>
@@ -1545,8 +1586,9 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   const float* x;
   if constexpr (SRC == kMonteCarlo) {
     // the LLR buffers are scratch until the first DOWN
-    mc_prologue<false, T>(a, chan, ut, reinterpret_cast<unsigned char*>(lam),
-                          sm, tid, lane, warp);
+    mc_prologue<false, T>(a, a.st, chan, ut,
+                          reinterpret_cast<unsigned char*>(lam), sm, tid, lane,
+                          warp);
     clk_mark(kClkPrologue);
     x = chan;
   } else {
@@ -1963,10 +2005,10 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   }
 }
 
-#define SCL_KERNEL(NAME, MIN_BLOCKS, ...)                                  \
-  __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) NAME(SclArgs a) { \
+#define SCL_KERNEL(NAME, T, MIN_BLOCKS, ...)                               \
+  __global__ void __launch_bounds__(T, MIN_BLOCKS) NAME(SclArgs a) {       \
     clk_begin();                                                          \
-    scl_body<__VA_ARGS__>(a);                                             \
+    scl_body<__VA_ARGS__, T>(a);                                          \
     clk_end();                                                            \
   }
 
@@ -1983,30 +2025,33 @@ FAST_KERNEL(scl_decode, kLlrIn, kSelect)
 FAST_KERNEL(scl_decode_traj, kLlrIn, kTrajectory)
 FAST_KERNEL(scl_mc_traj, kMonteCarlo, kTrajectory)
 FAST_KERNEL(scl_mc_counters, kMonteCarlo, kCounters)
-// with l > 2 kernels: bch_sc's decode state is a few KB, so registers set
-// the blocks an SM; ask for 4 (<= 64 registers a thread)
-SCL_KERNEL(scl_decode_big, 4, kLlrIn, kSelect, true, 8)
-SCL_KERNEL(scl_decode_traj_big, 4, kLlrIn, kTrajectory, true, 8)
-SCL_KERNEL(scl_mc_traj_big, 4, kMonteCarlo, kTrajectory, true, 8)
-SCL_KERNEL(scl_mc_counters_big, 4, kMonteCarlo, kCounters, true, 8)
+// capacity 8 with l > 2 kernels, and the subtree kernel (K3; it also
+// runs Arikan children): one instance a thread count of `general_threads`
+// (32 and 64 threads a codeword), each at kBig8Registers a thread
+#define BIG8_BLOCKS(T) (65536 / kBig8Registers / (T))
+#define BIG8_KERNELS(T)                                                                 \
+  SCL_KERNEL(scl_decode_big_t##T, T, BIG8_BLOCKS(T), kLlrIn, kSelect, true, 8)          \
+  SCL_KERNEL(scl_decode_traj_big_t##T, T, BIG8_BLOCKS(T), kLlrIn, kTrajectory, true, 8) \
+  SCL_KERNEL(scl_mc_traj_big_t##T, T, BIG8_BLOCKS(T), kMonteCarlo, kTrajectory, true, 8) \
+  SCL_KERNEL(scl_mc_counters_big_t##T, T, BIG8_BLOCKS(T), kMonteCarlo, kCounters, true, 8) \
+  SCL_KERNEL(scl_subtree_t##T, T, BIG8_BLOCKS(T), kPathBound, kSubtree, true, 8)
+BIG8_KERNELS(32)
+BIG8_KERNELS(64)
 // capacity 32 (8 < L <= 32; K1, K2, K4, K5, replacing pallas_scl.py
 // `core_sel`, `core`, `core_mc`, `core_cnt` there): the fork table, the
 // one-pass selection and the in-place flips (the note above `fork_table`);
 // ~11 KB of `Small<32>`, 8-byte path maps a thread, 2 blocks an SM
-SCL_KERNEL(scl_decode_c32, 2, kLlrIn, kSelect, false, 32)
-SCL_KERNEL(scl_decode_traj_c32, 2, kLlrIn, kTrajectory, false, 32)
-SCL_KERNEL(scl_mc_traj_c32, 2, kMonteCarlo, kTrajectory, false, 32)
-SCL_KERNEL(scl_mc_counters_c32, 2, kMonteCarlo, kCounters, false, 32)
-SCL_KERNEL(scl_decode_big_c32, 2, kLlrIn, kSelect, true, 32)
-SCL_KERNEL(scl_decode_traj_big_c32, 2, kLlrIn, kTrajectory, true, 32)
-SCL_KERNEL(scl_mc_traj_big_c32, 2, kMonteCarlo, kTrajectory, true, 32)
-SCL_KERNEL(scl_mc_counters_big_c32, 2, kMonteCarlo, kCounters, true, 32)
-// the subtree kernel: one depth-1 child a block; the l > 2 instance (it
-// also runs 2x2 stages) serves Arikan and mixed children. scl_subtree_c32
-// (mixed_scl32's 13 children at L=32) is the capacity-32 design; its pm_in
-// is path-bound, so `pm_sorted` starts false
-SCL_KERNEL(scl_subtree, 4, kPathBound, kSubtree, true, 8)
-SCL_KERNEL(scl_subtree_c32, 2, kPathBound, kSubtree, true, 32)
+SCL_KERNEL(scl_decode_c32, kThreads, 2, kLlrIn, kSelect, false, 32)
+SCL_KERNEL(scl_decode_traj_c32, kThreads, 2, kLlrIn, kTrajectory, false, 32)
+SCL_KERNEL(scl_mc_traj_c32, kThreads, 2, kMonteCarlo, kTrajectory, false, 32)
+SCL_KERNEL(scl_mc_counters_c32, kThreads, 2, kMonteCarlo, kCounters, false, 32)
+SCL_KERNEL(scl_decode_big_c32, kThreads, 2, kLlrIn, kSelect, true, 32)
+SCL_KERNEL(scl_decode_traj_big_c32, kThreads, 2, kLlrIn, kTrajectory, true, 32)
+SCL_KERNEL(scl_mc_traj_big_c32, kThreads, 2, kMonteCarlo, kTrajectory, true, 32)
+SCL_KERNEL(scl_mc_counters_big_c32, kThreads, 2, kMonteCarlo, kCounters, true, 32)
+// the subtree kernel at capacity 32: mixed_scl32's 13 children at L=32;
+// its pm_in is path-bound, so `pm_sorted` starts false
+SCL_KERNEL(scl_subtree_c32, kThreads, 2, kPathBound, kSubtree, true, 32)
 
 }  // namespace
 
@@ -2018,11 +2063,6 @@ static bool arikan8(int kernel, int P, int big) {
   return kernel < 4 && !big && P <= 8;
 }
 
-// threads a block of the instance that takes (kernel, P, big)
-int scl_block_threads(int kernel, int P, int big) {
-  return arikan8(kernel, P, big) ? kFastThreads : kThreads;
-}
-
 // kernel: 0 scl_decode, 1 scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters,
 // 4 scl_subtree
 size_t scl_smem_bytes(int kernel, const SclArgs* a) {
@@ -2030,30 +2070,71 @@ size_t scl_smem_bytes(int kernel, const SclArgs* a) {
     return (size_t)fast_layout(a->N, a->m, a->P, a->Q, kernel == 2 || kernel == 3)
         .total;
   const size_t N = a->N, P = a->P, Q = a->Q;
-  return (size_t)4 * a->n_lam + (size_t)a->n_dec + N * P + 2 * Q * P
-         + (size_t)a->n_maps + (kernel == 2 || kernel == 3 ? 5 * N : 0)
-         + (kernel == 4 ? P : 0);
+  return (P <= 8 ? (size_t)stage_copy_bytes(a->m) : 0) + (size_t)4 * a->n_lam
+         + (size_t)a->n_dec + N * P + 2 * Q * P + (size_t)a->n_maps
+         + (kernel == 2 || kernel == 3 ? 5 * N : 0) + (kernel == 4 ? P : 0);
+}
+
+// Threads a codeword of the general body for `kernel` on *a: capacity 32
+// kThreads; capacity 8 one warp, or two where the one-warp blocks an SM's
+// shared memory holds bring fewer warps than its registers allow at
+// kBig8Registers a thread, W (the device's own limits): fewer than W for
+// the decode kernels, fewer than 3W/4 for the Monte-Carlo kernels (K4, K5),
+// which gained from the second warp only there (PERF.md §6). 0 if
+// the device cannot be asked. ops/cuda_scl.py `general_threads` models it
+// with an H100's limits.
+static int general_threads(int kernel, const SclArgs* a) {
+  if (a->P > 8) return kThreads;
+  int dev = 0, smem = 0, reserved = 0, regs = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
+             != cudaSuccess
+      || cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
+             != cudaSuccess
+      || cudaDeviceGetAttribute(&regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev)
+             != cudaSuccess)
+    return 0;
+  const size_t block = scl_smem_bytes(kernel, a) + sizeof(Small<8>) + reserved;
+  const int blocks = (int)(smem / block);
+  const int quarters = kernel == 2 || kernel == 3 ? 3 : 4;  // of W
+  return 4 * blocks * 32 * kBig8Registers < quarters * regs ? 64 : 32;
+}
+
+// threads a block of the instance that runs `kernel` for *a
+int scl_block_threads(int kernel, const SclArgs* a) {
+  return arikan8(kernel, a->P, a->big) ? kFastThreads : general_threads(kernel, a);
 }
 
 // The instance that runs `kernel` for *a, after its shared-memory limit is
 // set; null if *a is out of range.
 static void (*instance(int kernel, const SclArgs* a, size_t smem))(SclArgs) {
-  // [capacity 8, 32][kernel + 5 * big]
-  static void (*const fns[2][10])(SclArgs) = {
-      {scl_decode, scl_decode_traj, scl_mc_traj, scl_mc_counters, scl_subtree,
-       scl_decode_big, scl_decode_traj_big, scl_mc_traj_big,
-       scl_mc_counters_big, scl_subtree},
-      {scl_decode_c32, scl_decode_traj_c32, scl_mc_traj_c32,
-       scl_mc_counters_c32, scl_subtree_c32, scl_decode_big_c32,
-       scl_decode_traj_big_c32, scl_mc_traj_big_c32, scl_mc_counters_big_c32,
-       scl_subtree_c32}};
-  const int cap = a->P <= 8 ? 0 : 1;
+  static void (*const fast[4])(SclArgs) = {scl_decode, scl_decode_traj,
+                                           scl_mc_traj, scl_mc_counters};
+  // capacity 8, [T / 64][kernel]
+  static void (*const big8[2][5])(SclArgs) = {
+      {scl_decode_big_t32, scl_decode_traj_big_t32, scl_mc_traj_big_t32,
+       scl_mc_counters_big_t32, scl_subtree_t32},
+      {scl_decode_big_t64, scl_decode_traj_big_t64, scl_mc_traj_big_t64,
+       scl_mc_counters_big_t64, scl_subtree_t64}};
+  // capacity 32, [kernel + 5 * big]
+  static void (*const c32[10])(SclArgs) = {
+      scl_decode_c32, scl_decode_traj_c32, scl_mc_traj_c32,
+      scl_mc_counters_c32, scl_subtree_c32, scl_decode_big_c32,
+      scl_decode_traj_big_c32, scl_mc_traj_big_c32, scl_mc_counters_big_c32,
+      scl_subtree_c32};
   const int maps = a->n_maps + (kernel == 4 ? a->P : 0);
   if (kernel < 0 || kernel > 4 || a->P < 1 || a->P > 32 || a->W > 32
       || a->B < 1 || a->N < 2 || a->m < 1 || a->m + 1 > kMaxStages
-      || maps > maps_per_thread(cap ? 32 : 8) * kThreads)
+      || (a->P > 8 && maps > kMapsPerThread32 * kThreads))
     return nullptr;
-  void (*const fn)(SclArgs) = fns[cap][kernel + (a->big ? 5 : 0)];
+  void (*fn)(SclArgs);
+  if (arikan8(kernel, a->P, a->big)) fn = fast[kernel];
+  else if (a->P > 8) fn = c32[kernel + (a->big ? 5 : 0)];
+  else {
+    const int T = general_threads(kernel, a);
+    if (T == 0) return nullptr;
+    fn = big8[T / 64][kernel];
+  }
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return nullptr;
@@ -2064,7 +2145,7 @@ int scl_launch(int kernel, const SclArgs* a, void* stream) {
   const size_t smem = scl_smem_bytes(kernel, a);
   void (*const fn)(SclArgs) = instance(kernel, a, smem);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const int threads = scl_block_threads(kernel, a->P, a->big);
+  const int threads = scl_block_threads(kernel, a);
   fn<<<a->B, threads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
@@ -2077,7 +2158,7 @@ int scl_blocks_per_sm(int kernel, const SclArgs* a) {
   int blocks = 0;
   if (fn == nullptr
       || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks, fn, scl_block_threads(kernel, a->P, a->big), smem)
+             &blocks, fn, scl_block_threads(kernel, a), smem)
              != cudaSuccess)
     return -1;
   return blocks;

@@ -18,7 +18,10 @@ capacities 8 and 32, chosen at launch by a rule of the spec's shape:
 Arikan specs (2x2 kernels only) at P <= 8 go to the Arikan capacity-8 body
 (`arikan8`: 128 threads a codeword, decisions and trajectory bits packed
 in words, `fast_smem_bytes`), every other spec and the subtree kernel to
-the general body (256 threads). This module builds the op table
+the general body: at P <= 8 one warp a codeword, two where shared memory
+would hold too few one-warp blocks (`general_threads`; the stage tables
+copied to shared memory), at capacity 32 256 threads
+(`general_smem_bytes`). This module builds the op table
 from the fast-SSCL program (ops/program.py) and the per-stage tables,
 compiles the source with nvcc at first use into a shared library with a
 plain C interface under build/ at the repository root (git-ignored;
@@ -61,18 +64,27 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _KIND = {"DOWN_FRESH": 0, "DOWN_DYN": 1, "UP": 2, "R0": 3, "REP": 4,
          "R1": 5, "SPC": 6, "LEAF": 7}
 _LEAF_FROZEN = 8
-_THREADS = 256            # the general body's threads a codeword
+C32_THREADS = 256         # the general body's threads a codeword at capacity 32
 _MAX_STAGES = 17
 # static shared memory of the Arikan capacity-8 body (`Fast` in the source)
 FAST_STATIC_BYTES = 1232
-# static shared memory of the general body's list capacity 32 (`Small<32>`
-# with its fork table `ForkTable<32>`)
+# static shared memory of the general body's list capacities 8 and 32
+# (`Small<8>`, `Small<32>` with their fork tables `ForkTable<CAP>`)
+SMALL8_STATIC_BYTES = 1296
 SMALL32_STATIC_BYTES = 10944
+# the general body's capacity-8 instances: registers a thread at their
+# launch bounds, so warps an SM; an H100 SM's limits (the library reads
+# the device's own)
+BIG8_REGISTERS = 128
+BIG8_WARPS = 65536 // BIG8_REGISTERS // 32
+SM_MAX_BLOCKS = 32
+SM_SHARED_BYTES = 228 * 1024
+RESERVED_PER_BLOCK = 1024     # shared memory the runtime keeps a block
 
-# `arikan8`, `fast_smem_bytes`, `general_smem_bytes` and the static sizes
-# model the source's rule and layout on the host (the launches take the
-# library's own figures); tests/test_torch_cuda.py holds them to the
-# library.
+# `arikan8`, `general_threads`, `fast_smem_bytes`, `general_smem_bytes` and
+# the static sizes model the source's rules and layouts on the host (the
+# launches take the library's own figures); tests/test_torch_cuda.py holds
+# them to the library.
 
 
 def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
@@ -81,6 +93,19 @@ def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
     kernels only at list sizes <= 8 (the source's `arikan8`)."""
     return (kernel != "scl_subtree" and all(f == 2 for f in spec.factors)
             and int(list_size) <= 8)
+
+
+def general_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Threads a codeword of the general body on an H100 (the source's
+    `general_threads`): at capacity 32 256; at capacity 8 one warp, or two
+    where the one-warp blocks an SM's shared memory holds bring fewer than
+    BIG8_WARPS warps (decode kernels) or 3/4 of them (the Monte-Carlo
+    kernels)."""
+    if int(list_size) > 8:
+        return C32_THREADS
+    blocks = SM_SHARED_BYTES // _block_smem(spec, list_size, kernel)
+    quarters = 3 if kernel in ("scl_mc_traj", "scl_mc_counters") else 4
+    return 64 if 4 * blocks < quarters * BIG8_WARPS else 32
 
 
 def fast_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
@@ -102,23 +127,43 @@ def fast_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
 
 def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
     """Dynamic shared memory of the general body (the source's
-    `scl_smem_bytes`): LLR buffers, decision bytes, trajectory bits N*P,
-    span perms and suffix indices (Q*P bytes each), the path maps, the
-    channel LLRs and u_true (5N, Monte-Carlo kernels) and the net map (P,
-    scl_subtree)."""
+    `scl_smem_bytes`): at capacity 8 the m + 1 stage tables (16-aligned,
+    `stage_copy_bytes`), then the LLR buffers, decision bytes, trajectory
+    bits N*P, span perms and suffix indices (Q*P bytes each), the path
+    maps, the channel LLRs and u_true (5N, Monte-Carlo kernels) and the net
+    map (P, scl_subtree)."""
     P = int(list_size)
     _, n_lam, n_dec, n_maps = stage_tables(spec, P)
     Q = len(trajectory_spans(spec, P))
-    return (4 * n_lam + n_dec + spec.N * P + 2 * Q * P + n_maps
+    tabs = (len(spec.factors) + 1) * ctypes.sizeof(StageTab)
+    copy = -(-tabs // 16) * 16 if P <= 8 else 0
+    return (copy + 4 * n_lam + n_dec + spec.N * P + 2 * Q * P + n_maps
             + (5 * spec.N if kernel in ("scl_mc_traj", "scl_mc_counters") else 0)
             + (P if kernel == "scl_subtree" else 0))
 
 
-def max_maps(list_size: int) -> int:
-    """Bytes of path maps the kernels hold (the source's `maps_per_thread`):
-    the instances of list capacity 8 take 2 a thread, those of capacity 32
-    (list sizes 9..32) 8 a thread."""
-    return (2 if int(list_size) <= 8 else 8) * _THREADS
+def _block_smem(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Shared memory a capacity-8 block of the general body takes of its
+    SM: dynamic, static and what the runtime keeps a block."""
+    return (general_smem_bytes(spec, list_size, kernel) + SMALL8_STATIC_BYTES
+            + RESERVED_PER_BLOCK)
+
+
+def general_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Blocks of the general body's capacity-8 instance for (spec,
+    list_size, kernel) an H100 SM holds, by its layout: the least of the
+    SM's 32 blocks, its registers at the launch bounds (BIG8_REGISTERS a
+    thread) and its shared memory."""
+    T = general_threads(spec, list_size, kernel)
+    return min(SM_MAX_BLOCKS, BIG8_WARPS * 32 // T,
+               SM_SHARED_BYTES // _block_smem(spec, list_size, kernel))
+
+
+def max_maps(list_size: int) -> int | None:
+    """Bytes of path maps the kernels hold (the source's
+    `kMapsPerThread32`): 8 a thread of 256 at capacity 32 (list sizes
+    9..32); None at capacity 8, where a thread permutes whole maps."""
+    return 8 * C32_THREADS if int(list_size) > 8 else None
 
 
 # the op-kind clock build's slots, in the source's `ClockSlot` order; the
@@ -177,7 +222,7 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
     lib.scl_decode_max_smem_bytes.restype = ci
     lib.scl_static_smem_bytes.argtypes = [ci, ci, ci]
     lib.scl_static_smem_bytes.restype = ci
-    lib.scl_block_threads.argtypes = [ci, ci, ci]
+    lib.scl_block_threads.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_block_threads.restype = ci
     lib.scl_blocks_per_sm.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_blocks_per_sm.restype = ci
@@ -230,9 +275,9 @@ def stage_tables(spec: CodeSpec, P: int):
     block n_s, the offsets of its LLR buffer (P*n_s floats), its l_s
     decision children (P*n_s bytes each) and its 1 + l_s path maps (P
     bytes each), whether the kernels below it are all 2x2, the columns of
-    its kernel's inverse and its kernel's tables (ops/cuda_stage.py). The
-    maps, with the subtree kernel's net map (P bytes more), must fit
-    `max_maps(P)`."""
+    its kernel's inverse and its kernel's tables (ops/cuda_stage.py). At
+    capacity 32 the maps, with the subtree kernel's net map (P bytes
+    more), must fit `max_maps(P)`."""
     m = len(spec.factors)
     if m + 1 > _MAX_STAGES:
         raise ValueError(f"{m} stages exceed the kernel's {_MAX_STAGES - 1}")
@@ -255,9 +300,10 @@ def stage_tables(spec: CodeSpec, P: int):
         for k in range(l):
             t.icol[k] = int((ki[:, k] << np.arange(l)).sum())
         t.k = big_kernel(spec.kernels[s - 1])
-    if maps + P > max_maps(P):
+    limit = max_maps(P)
+    if limit is not None and maps + P > limit:
         raise ValueError(f"{maps} + {P} bytes of path maps exceed the "
-                         f"kernel's {max_maps(P)}")
+                         f"kernel's {limit}")
     return tabs, lam, dec, maps
 
 
@@ -366,6 +412,11 @@ class SclKernels:
         args = self._args(1, device) if args is None else args
         return (lib.scl_smem_bytes(KERNELS[name], ctypes.byref(args)),
                 lib.scl_static_smem_bytes(KERNELS[name], self.P, args.big))
+
+    def block_threads(self, name: str, device: torch.device) -> int:
+        """Threads a block of kernel `name`, from the library."""
+        return load_library().scl_block_threads(
+            KERNELS[name], ctypes.byref(self._args(1, device)))
 
     def blocks_per_sm(self, name: str, device: torch.device) -> int:
         """Blocks of kernel `name` an SM holds at once (the occupancy API)."""

@@ -3,13 +3,15 @@
     python -m polar_tpu_torch.sim.kernel_times [--reps 5] [--batch 8192]
         [--only ca_scl,arikan_sc,...] [--mixed-batch 256]
     python -m polar_tpu_torch.sim.kernel_times --split [--batch 8192]
-        [--only ca_scl,L32,mixed_scl32]
+        [--only ca_scl,bch_sc,L32,mixed_scl32]
 
 Rows (one JSON line each, with the card's name and power limit):
 `ca_scl` (L=8): K1 (`scl_decode`) on channel LLRs at 2.0 dB and K5
 (`scl_mc_counters`, the whole Monte-Carlo step); `arikan_sc` (L=1): K2
 (`scl_decode_traj`); `bch_sc` (L=1): K2, K4 (`scl_mc_traj`) and K5, and
-K1 at L=8; `L32`:
+K1 at L=8; `golden_mixed` (the spec of results/golden_mixed_scl_b128.npz,
+N=512, (16,2,2,2,2,2): the one spec whose layout can take the general
+body's two-warp instances): K5 and K1 at L = 4..8; `L32`:
 K1 and K2 at L=32 on (2,)*7 with CRC-8 and on the mixed (16,2,2); and
 `mixed_scl32` (L=32, `--mixed-batch` codewords, the preset's 256 by
 default): K3 as the 13 subtree-kernel launches of one decode (inputs
@@ -22,7 +24,8 @@ times; `min_ms` is the least. It uses only entry points that earlier
 versions of the port have, so two checkouts can be compared in one call
 on one card (run it in each, in the order A, B, B, A).
 
-`--split` instead launches K5 and K1 at ca_scl once each, K1 at L=32 on
+`--split` instead launches K5 and K1 at ca_scl once each, K5 at bch_sc
+(L=1) and K1 at bch_sc L=8, K1 at L=32 on
 the two `L32` specs (`--batch` codewords), and K3 as the 13 launches of one
 mixed_scl32 decode (the captured inputs above), through the op-kind clock
 build of csrc/scl_decode.cu (`-DSCL_CLOCK`, ops/cuda_scl.py
@@ -32,7 +35,7 @@ DOWN ops have slots of their own (the last input, the syndrome trellis,
 the tail table). It also prints the R1/SPC fork rounds a block ran and
 the chain's cycles a round: the rounds follow from the op program alone
 (`fork_rounds`), and a clock build that counts them (its `R1/SPC rounds`
-slot) must agree. `--only` picks the runs (`ca_scl`, `L32`,
+slot) must agree. `--only` picks the runs (`ca_scl`, `bch_sc`, `L32`,
 `mixed_scl32`).
 
 `trace_summary` reads a torch.profiler Chrome trace (sim/sweep_cli.py
@@ -57,8 +60,11 @@ from polar_tpu_torch.ops.cuda_scl import SclDecoder
 from polar_tpu_torch.ops.encode import encode
 from polar_tpu_torch.ops.mc import build_mc_step
 from polar_tpu_torch.sim.channel import channel_llrs, ebn0_to_sigma
+from polar_tpu_torch.sim.golden import load_golden
 
-ROWS = ("ca_scl", "arikan_sc", "bch_sc", "L32", "mixed_scl32")
+ROWS = ("ca_scl", "arikan_sc", "bch_sc", "golden_mixed", "L32", "mixed_scl32")
+GOLDEN_MIXED = pathlib.Path(__file__).resolve().parents[2] / "results" / "golden_mixed_scl_b128.npz"
+SPLIT_RUNS = ("ca_scl", "bch_sc", "L32", "mixed_scl32")
 
 
 def _ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -198,10 +204,11 @@ def _mixed_rows(dev, B: int):
     return rows
 
 
-def split(B: int, dev, card: str, only=("ca_scl", "L32", "mixed_scl32")) -> None:
-    """The op-kind clock of K5 and K1 at ca_scl (B codewords), of K1 at
-    L=32 on the `L32` specs (B codewords) and of K3 on the 13 children of
-    one mixed_scl32 decode (B=256), through the clock build."""
+def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
+    """The op-kind clock of K5 and K1 at ca_scl (B codewords), of K5 at
+    bch_sc (L=1) and K1 at bch_sc L=8 (B codewords), of K1 at L=32 on the
+    `L32` specs (B codewords) and of K3 on the 13 children of one
+    mixed_scl32 decode (B=256), through the clock build."""
     from polar_tpu_torch.ops import cuda_scl
 
     # older checkouts' clock builds have no round count
@@ -217,9 +224,21 @@ def split(B: int, dev, card: str, only=("ca_scl", "L32", "mixed_scl32")) -> None
         sigma = float(ebn0_to_sigma(2.0, spec.rate))
         rounds = (fork_rounds(spec, L), 1)
         runs += [("ca_scl", "scl_mc_counters", B,
-                  lambda: step.counts((11, 12), sigma, B), rounds),
+                  lambda st=step, sg=sigma: st.counts((11, 12), sg, B), rounds),
                  ("ca_scl", "scl_decode", B, lambda d=dec, x=llr: d.kernel(x),
                   rounds)]
+    if "bch_sc" in only:
+        spec = get_preset("bch_sc").spec
+        gen = torch.Generator(device=dev).manual_seed(7)
+        llr = _channel(spec, B, gen, dev)
+        dec = SclDecoder(spec, 8, dev, select=True)
+        step = build_mc_step(spec, 1, device=dev, counters=True)
+        sigma = float(ebn0_to_sigma(2.0, spec.rate))
+        runs += [("bch_sc", "scl_mc_counters", B,
+                  lambda st=step, sg=sigma: st.counts((11, 12), sg, B),
+                  (fork_rounds(spec, 1), 1)),
+                 ("bch_sc L=8", "scl_decode", B, lambda d=dec, x=llr: d.kernel(x),
+                  (fork_rounds(spec, 8), 1))]
     if "L32" in only:
         gen = torch.Generator(device=dev).manual_seed(7)
         crc8 = CrcSpec(8, 0x07, 0)
@@ -314,18 +333,31 @@ def trace_summary(path, top: int = 5, gaps: int = 3) -> dict:
             "gaps": out_gaps}
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line; `--only` must name rows (or, with --split, runs)
+    this script has."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8192)
-    ap.add_argument("--only", default=",".join(ROWS),
-                    help=f"comma-separated rows of {ROWS}")
+    ap.add_argument("--only", default=None,
+                    help=f"comma-separated rows of {ROWS} (default: all), or "
+                         f"with --split runs of {SPLIT_RUNS}")
     ap.add_argument("--mixed-batch", type=int, default=256,
                     help="codewords of the mixed_scl32 rows (the preset's 256)")
     ap.add_argument("--split", action="store_true",
-                    help="the op-kind clock of K5 and K1 at ca_scl, of K1 at "
-                         "L=32 and of K3 at mixed_scl32 instead")
+                    help="the op-kind clock of K5 and K1 at ca_scl and bch_sc, "
+                         "of K1 at L=32 and of K3 at mixed_scl32 instead")
     args = ap.parse_args(argv)
+    known = SPLIT_RUNS if args.split else ROWS
+    args.only = args.only or ",".join(known)
+    unknown = [o for o in args.only.split(",") if o not in known]
+    if unknown:
+        ap.error(f"--only {','.join(unknown)}: not one of {known}")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     dev = torch.device("cuda")
@@ -350,6 +382,10 @@ def main(argv=None) -> None:
                          B, gen, dev)
             + _decode_rows("bch_sc", get_preset("bch_sc").spec, 8,
                            ("scl_decode",), B, gen, dev)),
+        "golden_mixed": lambda: [
+            row for L in range(4, 9)
+            for row in _decode_rows("golden_mixed", load_golden(GOLDEN_MIXED)[0], L,
+                                    ("scl_mc_counters", "scl_decode"), B, gen, dev)],
         "L32": lambda: (
             _decode_rows("L32 (2,)*7", _mixed_spec((2,) * 7, 56, crc8), 32,
                          ("scl_decode", "scl_decode_traj"), B, gen, dev)

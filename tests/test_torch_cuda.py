@@ -243,7 +243,7 @@ def test_stage_kernel_matches_plain(cuda, l):
                 assert torch.equal(got, fn.plain(x)), (l, i, paths, n, quant)
 
 
-@pytest.mark.parametrize("L", [1, 2, 4, 8])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 7, 8])
 @pytest.mark.parametrize("factors,K,crc", _MIXED)
 def test_big_stage_body_matches_plain(cuda, factors, K, crc, L):
     spec = _mixed(factors, K, crc)
@@ -257,7 +257,7 @@ def test_big_stage_body_matches_plain(cuda, factors, K, crc, L):
             _same(dec.trajectory(x), dec.plain_trajectory(x))
 
 
-@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 7, 8])
 @pytest.mark.parametrize("factors,K,crc", _MIXED)
 def test_big_stage_mc_kernels_match_plain(cuda, factors, K, crc, L):
     from polar_tpu_torch.ops.mc import build_mc_step
@@ -274,6 +274,44 @@ def test_big_stage_mc_kernels_match_plain(cuda, factors, K, crc, L):
     # the in-kernel Philox draw: the same transmitted u
     assert torch.equal(step.trajectory(seed, 0.8, 256)[3],
                        step.plain_trajectory(seed, 0.8, 256)[3])
+
+
+@pytest.mark.parametrize("L", [4, 5, 6, 7, 8])
+def test_golden_mixed_spec_kernels_match_plain(cuda, L):
+    """The golden mixed spec (N=512, (16,2,2,2,2,2)) takes the two-warp
+    instances (K1, K2 and K3 from L=6; K4, K5 from L=7): K1, K2, K4, K5
+    and K3 (the whole spec, path-bound) == plain, on Gaussian inputs and
+    (K1, K2) integer ones."""
+    from polar_tpu_torch.ops.mc import build_mc_step
+    spec = load_golden(ROOT / "results" / "golden_mixed_scl_b128.npz")[0]
+    k = cuda_scl.SclKernels(spec, L)
+    for name in cuda_scl.KERNELS:
+        want = 64 if L >= (7 if name in ("scl_mc_traj", "scl_mc_counters") else 6) else 32
+        assert k.block_threads(name, cuda) == want, name
+    rng = np.random.default_rng(500 + L)
+    g = 2.0 * rng.standard_normal((256, spec.N)) + 0.5
+    for v in (g, np.round(g)):
+        x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        for select in (True, False):
+            dec = cuda_scl.SclDecoder(spec, L, cuda, select=select)
+            _equal(dec.kernel(x), dec.plain(x))
+            if not select:
+                _same(dec.trajectory(x), dec.plain_trajectory(x))
+    step = build_mc_step(spec, L, device=cuda)
+    noise = torch.as_tensor(rng.standard_normal((256, spec.N)), dtype=torch.float32,
+                            device=cuda)
+    seed = (int(rng.integers(2**32)), int(rng.integers(2**32)))
+    _same(step.trajectory(seed, 0.8, 256, noise),
+          step.plain_trajectory(seed, 0.8, 256, noise))
+    assert torch.equal(step.counts(seed, 0.8, 256, noise),
+                       step.plain_counts(seed, 0.8, 256, noise))
+    core = cuda_scl.SubtreeKernel(spec, L)
+    lam = torch.as_tensor(2.5 * rng.standard_normal((L, spec.N, 256)),
+                          dtype=torch.float32, device=cuda)
+    pm = torch.as_tensor(3.0 * rng.random((L, 256)), dtype=torch.float32, device=cuda)
+    before = cuda_scl.LAUNCHES["scl_subtree"]
+    _same(core(lam, pm), core.plain(lam, pm))
+    assert cuda_scl.LAUNCHES["scl_subtree"] == before + 1
 
 
 def test_bch_sc_kernels_and_hybrid(cuda):
@@ -294,6 +332,35 @@ def test_bch_sc_kernels_and_hybrid(cuda):
     before = cuda_stage.LAUNCHES["stage_down"]
     _equal(hybrid(x), sc(x))
     assert cuda_stage.LAUNCHES["stage_down"] == before + 105
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8])
+def test_bch_sc_kernels_on_tied_and_huge_llrs(cuda, L):
+    """bch_sc's K1, K2 (integer LLRs: tied metrics and positions; LLRs at
+    +-1e30 and 4e30) and K4, K5 (integer noise, noise at 1e32) == plain.
+    No +-inf: an l > 2 marginal of an infinite input is inf - inf, NaN,
+    which the kernels' fmaxf and the plain version's maximum treat apart
+    (the Arikan specs take one +-inf a codeword, test_arikan8_*)."""
+    from polar_tpu_torch.models.presets import bch_sc
+    from polar_tpu_torch.ops.mc import build_mc_step
+    spec = bch_sc().spec
+    rng = np.random.default_rng(40 + L)
+    g = 3.0 * rng.standard_normal((1024, spec.N))
+    for v in (np.round(g), _huge(g, rng, False)):
+        x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        for select in (True, False):
+            dec = cuda_scl.SclDecoder(spec, L, cuda, select=select)
+            _equal(dec.kernel(x), dec.plain(x))
+            if not select:
+                _same(dec.trajectory(x), dec.plain_trajectory(x))
+    step = build_mc_step(spec, L, device=cuda)
+    n = rng.standard_normal((1024, spec.N))
+    for v in (np.round(1.5 * n), np.where(rng.random(n.shape) < 0.3, 1e32, n)):
+        noise = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        _same(step.trajectory((3, 4), 1.0, 1024, noise),
+              step.plain_trajectory((3, 4), 1.0, 1024, noise))
+        assert torch.equal(step.counts((3, 4), 1.0, 1024, noise),
+                           step.plain_counts((3, 4), 1.0, 1024, noise))
 
 
 def test_bch_sc_sweep_routes_agree_on_card(cuda):
@@ -433,11 +500,45 @@ def test_capacity32_shared_memory_mirror(cuda):
             assert k.blocks_per_sm("scl_subtree", cuda) == 2, it[1]
 
 
+def test_big8_shared_memory_mirror(cuda):
+    """The library's threads and shared memory of the general body's
+    capacity-8 instances == the Python mirror (`general_threads`,
+    `general_smem_bytes`, SMALL8_STATIC_BYTES) at bch_sc, the mixed specs
+    and the golden mixed spec (N=512) for L = 1..8, and the card holds at
+    least the blocks an SM that the layout allows (`general_blocks_per_sm`:
+    16 one-warp blocks at bch_sc)."""
+    from polar_tpu_torch.models.presets import bch_sc
+    gspec = load_golden(ROOT / "results" / "golden_mixed_scl_b128.npz")[0]
+    specs = [bch_sc().spec, gspec] + [_mixed(*m) for m in _MIXED]
+    for spec in specs:
+        for L in range(1, 9):
+            k = cuda_scl.SclKernels(spec, L)
+            for name in cuda_scl.KERNELS:
+                assert k.block_threads(name, cuda) == cuda_scl.general_threads(spec, L, name)
+                dyn, static = k.smem_bytes(name, cuda)
+                assert dyn == cuda_scl.general_smem_bytes(spec, L, name), (spec.factors, L, name)
+                assert static == cuda_scl.SMALL8_STATIC_BYTES
+                assert (k.blocks_per_sm(name, cuda)
+                        >= cuda_scl.general_blocks_per_sm(spec, L, name)), (spec.factors, L, name)
+    k = cuda_scl.SclKernels(bch_sc().spec, 1)
+    assert k.block_threads("scl_mc_counters", cuda) == 32
+    assert k.blocks_per_sm("scl_mc_counters", cuda) == 16
+
+
 def test_clock_build_counts_fork_rounds(cuda):
     """The op-kind clock's round count equals the op program's
-    (`kernel_times.fork_rounds`) on a capacity-32 and an Arikan
-    capacity-8 decode."""
+    (`kernel_times.fork_rounds`) on capacity-32 decodes, an Arikan
+    capacity-8 decode and bch_sc at L=8 (the general body's capacity 8)."""
+    from polar_tpu_torch.models.presets import bch_sc
     from polar_tpu_torch.sim.kernel_times import fork_rounds
+    dec = cuda_scl.SclDecoder(bch_sc().spec, 8, cuda, select=True)
+    x = torch.randn((64, 256), device=cuda)
+    dec.kernel(x)
+    with cuda_scl.clock_build() as lib:
+        dec.kernel(x)
+        clk = cuda_scl.read_clock(lib)
+    assert clk["blocks"] == 64
+    assert clk[cuda_scl.ROUNDS_SLOT] == 64 * fork_rounds(bch_sc().spec, 8) == 64 * 37
     for factors, L in (((2,) * 6, 32), ((16, 2, 2), 17), ((2,) * 6, 8)):
         spec = _mixed(factors, 20, CrcSpec(8, 0x07, 0))
         dec = cuda_scl.SclDecoder(spec, L, cuda, select=True)

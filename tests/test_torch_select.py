@@ -1,7 +1,8 @@
-"""The Arikan capacity-8 body's fork and selection (csrc/scl_decode.cu
-`fork_rank` and the R1/SPC rank pass), as plain PyTorch models, against
-the plain decoder's `fork2` and `extract_mins` (ops/scl.py); and the
-Python mirror of the body's shared-memory layout.
+"""The capacity-8 fork and selection (csrc/scl_decode.cu `fork_rank` and
+the one-pass R1/SPC rank, in the Arikan capacity-8 body and in the general
+body at L <= 8), as plain PyTorch models, against the plain decoder's
+`fork2` and `extract_mins` (ops/scl.py) at every list size 1..8; and the
+Python mirror of the Arikan body's shared-memory layout.
 
 The kernel itself runs on the card (tests/test_torch_cuda.py); these
 models state its algorithm: a fork ranks each of the 2P candidates by
@@ -26,7 +27,7 @@ from polar_tpu_torch.models.polar import CodeSpec
 from polar_tpu_torch.ops import cuda_scl
 from polar_tpu_torch.ops.scl import BIG, extract_mins, fork2
 
-LIST_SIZES = (1, 2, 3, 4, 5, 8)
+LIST_SIZES = (1, 2, 3, 4, 5, 6, 7, 8)
 BLOCKS = (2, 4, 8, 16, 32, 64, 128)
 KINDS = ("random", "integer", "huge")
 BATCH = 64
