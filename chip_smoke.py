@@ -152,10 +152,11 @@ Phases (any failure exits non-zero):
    frame errors |z| < 4 against results/bf16_ab.jsonl's bfloat16 arm and
    against K1, the share of frames whose u equals K1's, both cw/s; (c)
    construct_mc of the committed bch_n256_k128 and mixed_n4096_k2064
-   (scripts/gen_sequences.py's arguments: 2.0 dB, 2^15 frames, seed 0;
-   B=8192), K6 launches counted from 0: the unfrozen count, and every
-   leaf on which the mask and the committed artifact disagree within 4
-   binomial sd of the port's cut; 4,096 bch_n256 frames from the same
+   (the Monte-Carlo rows of polar_tpu_torch/scripts/gen_sequences.py
+   `SPECS`, the JAX script's: 2.0 dB, 2^15 frames, seed 0; B=8192), K6
+   launches counted from 0: the unfrozen count, and every leaf on which
+   the mask and the committed artifact disagree within 4 binomial sd of
+   the port's cut; 4,096 bch_n256 frames from the same
    Philox keys on the card and the CPU (at most 1 frame in 10^4 differs);
    K6 timed at the genie decode's 255 launches;
 27. independent goldens (polar_tpu_torch/records/, decisions of the C++
@@ -168,7 +169,19 @@ Phases (any failure exits non-zero):
    launched (counts from 0 just before the replay): bch_sc L=1 (K2; the
    hybrid, K6), bch_sc L=8 (K1), (2,)*7 L=32 (K1), (2,16,2) L=32 (K1; the
    K3 route; the hybrid, K6); (c) each replay's wall ms and its decode's
-   ms by CUDA events (at L=1 also K2's alone).
+   ms by CUDA events (at L=1 also K2's alone);
+28. the entry points: `polar_tpu_torch.bench` (the flagship, ca_scl L=8
+   at B=8192 through K1) and `polar_tpu_torch.benchmarks.decode_bench`
+   rows, run in-process on the card as a user runs them (`ENTRY_ROWS`:
+   ca_scl `fused` (K5), arikan_sc `pallas` (K2 + scl_epilogue), bch_sc
+   `xla` at L=1 (K2 + scl_epilogue) and L=8 (K1), the bch_sc hybrid (K6,
+   105 launches a decode), mixed_scl32 through the K3 route at B=256 (13
+   K3, 15 K6)): each line parses and has its fields, each row's launches
+   in its timed window are `reps` x its decode's and no other kernel
+   launched, the flagship launched K1 reps + 1 times (its warm-up too) and
+   nothing else, and its rate is at most 1.05 x K1's own (phase 6; below
+   0.9 x it is printed as a finding); each row's rate beside its kernels'
+   own time in this run; gen_sequences' SPECS (used by phase 26(c)).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -176,9 +189,12 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -245,12 +261,31 @@ KNOB_FRAMES = 64            # frames of each knob route on the card and the CPU
 KNOB_SEED = 2026
 BF16_REF = "bf16_ab.jsonl"  # the TPU A/B: its frame counts, not its speeds
 BF16_BATCHES = 16           # 2^17 frames of the bfloat16 A/B
-# the committed artifacts' construction (scripts/gen_sequences.py): name,
-# kernels, unfrozen leaves, frames; 2.0 dB, seed 0
-CONSTRUCTIONS = (("bch_n256_k128", (16, 16), 128, 1 << 15),
-                 ("mixed_n4096_k2064", (16, 16, 2, 2, 2, 2), 2064, 1 << 15))
 CONSTRUCT_SD = 4.0          # a leaf the masks disagree on: within 4 sd of the cut
 CONSTRUCT_SAME_FRAMES = 4096    # bch_n256's genie decode on the card and the CPU
+# phase 28: decode_bench rows (arguments after the defaults: B=8192, 8
+# reps) and the kernels one call of each launches
+ENTRY_ROWS = (
+    (("--preset", "ca_scl", "--backend", "fused"), {"scl_mc_counters": 1},
+     "K5 ca_scl"),
+    (("--preset", "arikan_sc", "--backend", "pallas"), {"scl_decode_traj": 1},
+     "K2 arikan_sc"),
+    (("--preset", "bch_sc", "--backend", "xla"), {"scl_decode_traj": 1},
+     "K2 bch_sc"),
+    (("--preset", "bch_sc", "--backend", "xla", "--list-size", "8"),
+     {"scl_decode": 1}, "K1 bch_sc L=8"),
+    (("--preset", "bch_sc", "--backend", "xla", "--big-stage", "pallas"),
+     {"stage_down": 105}, "K6 x105 bch_sc"),
+    (("--preset", "mixed_scl32", "--backend", "xla", "--subtree", "pallas",
+      "--big-stage", "pallas", "--batch", "256"),
+     {"scl_subtree": 13, "stage_down": 15}, "K3 x13 + K6 x15 mixed_scl32"),
+)
+ENTRY_REPS = 8          # both entry points' default reps
+ENTRY_FIELDS = {"preset", "backend", "batch", "big_stage", "subtree", "measures",
+                "route", "list_size", "ms_per_decode", "codewords_per_s",
+                "build_s", "frame_errors", "launches", "device", "card"}
+FLAGSHIP_MAX = 1.05     # the flagship bench's rate over K1's own: at most
+FLAGSHIP_LOW = 0.9      # below it: printed as a finding
 # bch_sc at B=8192 before the general body's capacity-8 redesign (PERF.md:
 # sim/kernel_times.py on an NVIDIA H100 80GB HBM3, 700 W; K1 at L=8, the
 # others at L=1), printed beside phase 16's times
@@ -1186,6 +1221,7 @@ def knob_phases(dev, card, main_path) -> dict:
     from polar_tpu_torch.ops.mc import count_errors, mc_draw
     from polar_tpu_torch.ops.philox import step_seed
     from polar_tpu_torch.ops.scl import build_scl_decoder
+    from polar_tpu_torch.scripts import gen_sequences
     from polar_tpu_torch.sim.channel import ebn0_to_sigma
 
     cpu = torch.device("cpu")
@@ -1301,14 +1337,17 @@ def knob_phases(dev, card, main_path) -> dict:
 
     # ---- 26(c). construct_mc of the committed BCH and mixed codes ----
     k6 = {}
-    for name, factors, n_unf, frames in CONSTRUCTIONS:
+    frames = gen_sequences.MC_FRAMES
+    for name, (factors, n_unf, snr, method) in gen_sequences.SPECS.items():
+        if method != "mc":
+            continue
         N = int(np.prod(factors))
         k6[name] = {}
         err, wall = main_path(
             "stage_down", f"construct_mc {name}",
             lambda: montecarlo.mc_leaf_error_rates(
-                factors, EBN0_DB, n_unf / N, frames=frames, batch=BATCH,
-                seed=0, device=dev), into=k6[name])
+                factors, snr, n_unf / N, frames=frames, batch=BATCH,
+                seed=gen_sequences.MC_SEED, device=dev), into=k6[name])
         mask = montecarlo.frozen_from_rates(err, n_unf)
         committed = np.load(ROOT / "polar_tpu_torch" / "models" / "sequences"
                             / f"{name}.npy")
@@ -1317,8 +1356,9 @@ def knob_phases(dev, card, main_path) -> dict:
         off = np.nonzero(mask != committed)[0]
         z = {int(i): rate_z(float(err[i]), cut, frames) for i in off}
         far = [i for i, zi in z.items() if abs(zi) > CONSTRUCT_SD]
-        print(f"construct_mc {name} {factors} at {EBN0_DB} dB: {frames} frames "
-              f"(batch {BATCH}, seed 0) in {wall} s = {frames / wall} frames_per_s; "
+        print(f"construct_mc {name} {factors} at {snr} dB: {frames} frames "
+              f"(batch {BATCH}, seed {gen_sequences.MC_SEED}) in {wall} s = "
+              f"{frames / wall} frames_per_s; "
               f"unfrozen {N - int(mask.sum())}; leaves disagreeing with the "
               f"committed artifact {off.size}: cut {cut} ({cut * frames} errors); "
               f"(leaf, errors, frozen in the artifact, z) "
@@ -1425,6 +1465,74 @@ def golden_phase(dev, card) -> None:
         if counts.get(kernel, 0) < 1:
             raise SystemExit(f"the {path.name} replay through {label} "
                              f"launched no {kernel}")
+
+
+def _one_json_line(fn) -> dict:
+    """The JSON object `fn()` prints as its one line of output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn()
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1:
+        raise SystemExit(f"an entry point printed {len(lines)} lines, not one: "
+                         f"{lines}")
+    return json.loads(lines[0])
+
+
+def entry_phase(card, kind, k1_ms: float, alone: dict) -> dict:
+    """Phase 28: the flagship bench and the decode bench's rows on the card,
+    at their defaults. `alone` maps each row's last ENTRY_ROWS field to the
+    ms of its kernels alone in this run. Returns each kernel's rows for the
+    kernel table."""
+    from polar_tpu_torch import bench
+    from polar_tpu_torch.benchmarks import decode_bench
+    from polar_tpu_torch.scripts import gen_sequences
+
+    for var in ("BENCH_BATCH", "BENCH_REPS", "BENCH_DECODER", "BENCH_DEVICE"):
+        os.environ.pop(var, None)
+    table = {}
+    zero_launches()
+    line = _one_json_line(bench.main)
+    counts = {k: v for k, v in all_launches().items() if v}
+    k1_rate = BATCH / k1_ms * 1e3
+    ratio = line["value"] / k1_rate
+    print(f"entry: polar_tpu_torch.bench {json.dumps(line)} launches={counts}; "
+          f"K1 alone (phase 6) {k1_rate} cw_per_s, ratio {ratio} [{card}]")
+    if (set(line) != {"metric", "value", "unit"}
+            or line["metric"] != "decoded_codewords_per_s_per_chip_n1024_scl8"
+            or counts != {"scl_decode": ENTRY_REPS + 1}):
+        raise SystemExit(f"the flagship bench's line or launches are wrong: "
+                         f"{line} {counts}")
+    if ratio > FLAGSHIP_MAX:
+        raise SystemExit(f"the flagship bench reads {ratio} x K1's own rate")
+    if ratio < FLAGSHIP_LOW:
+        print(f"finding: the flagship bench runs at {ratio} of K1's own rate, "
+              f"below {FLAGSHIP_LOW} [{card}]")
+    table["scl_decode"] = [{"row": "polar_tpu_torch.bench",
+                            "launches": counts["scl_decode"],
+                            "codewords_per_s": line["value"],
+                            "of_k1_alone": ratio}]
+    for argv, per_decode, kernels in ENTRY_ROWS:
+        label = " ".join(argv)
+        rec = _one_json_line(lambda: decode_bench.main(list(argv)))
+        want = {k: n * ENTRY_REPS for k, n in per_decode.items()}
+        print(f"entry: decode_bench {label}: {json.dumps(rec)}; {kernels} alone "
+              f"{alone[kernels]} ms, the row's ms over it "
+              f"{rec['ms_per_decode'] / alone[kernels]} [{card}]")
+        if (set(rec) != ENTRY_FIELDS or rec["launches"] != want
+                or rec["card"] != card or rec["device"] != kind
+                or not math.isfinite(rec["codewords_per_s"])):
+            raise SystemExit(f"decode_bench {label}: wrong fields or launches "
+                             f"(want {want}): {rec}")
+        for k, n in rec["launches"].items():
+            table.setdefault(k, []).append(
+                {"row": f"decode_bench {label}", "launches": n,
+                 "ms_per_decode": rec["ms_per_decode"],
+                 "codewords_per_s": rec["codewords_per_s"],
+                 "alone_ms": alone[kernels]})
+    print(f"entry: gen_sequences SPECS (phase 26(c) builds the Monte-Carlo "
+          f"rows): {gen_sequences.SPECS}")
+    return table
 
 
 def _records(stdout: str) -> list[dict]:
@@ -2024,6 +2132,15 @@ def main() -> int:
     knob_rows = knob_phases(dev, card, main_path)
     # ---- 27. the independent golden records ----
     golden_phase(dev, card)
+    # ---- 28. the entry points ----
+    entry_rows = entry_phase(card, kind, rows["scl_decode"]["ms"], {
+        "K5 ca_scl": rows["scl_mc_counters"]["ms"],
+        "K2 arikan_sc": rows["scl_decode_traj"]["ms"],
+        "K2 bch_sc": bch_rows["scl_decode_traj"]["ms"],
+        "K1 bch_sc L=8": bch_rows["scl_decode"]["ms"],
+        "K6 x105 bch_sc": rows["stage_down"]["ms"],
+        "K3 x13 + K6 x15 mixed_scl32": (rows["scl_subtree"]["ms"]
+                                        + mixed_rows["stage_down"]["ms"])})
     print("library: no single PyTorch call computes an SCL decode, the "
           "Monte-Carlo step, a depth-1 child's list decode or a "
           "trellis/tail-table marginal (library_ms null)")
@@ -2045,6 +2162,7 @@ def main() -> int:
           if name in bch_rows else {}),
         **({"mixed_scl32": mixed_rows[name]} if name in mixed_rows else {}),
         **({"construct_mc": knob_rows} if name == "stage_down" else {}),
+        **({"entry_points": entry_rows[name]} if name in entry_rows else {}),
         **({"b2048": {k: rows[name][k] for k in ("ms_b2048", "bound_ms_b2048")}}
            if name == "scl_subtree" else {})) for name in KERNELS]}))
     print(card)

@@ -952,3 +952,29 @@ def test_host_codec_built_here_equals_committed_record(cuda, tmp_path):
     spec, L, llrs, u_ref = load_golden(record_path("golden_c32_subtree"))
     u = record_golden(spec, L, llrs[:8], tmp_path / "again.npz")
     assert np.array_equal(u, u_ref[:8])
+
+
+# decode_bench options and the kernels one call of the row launches
+_BENCH_ROWS = [
+    (["--preset", "ca_scl", "--backend", "fused"], {"scl_mc_counters": 1}),
+    (["--preset", "arikan_sc", "--backend", "pallas"], {"scl_decode_traj": 1}),
+    (["--preset", "bch_sc", "--backend", "xla"], {"scl_decode_traj": 1}),
+    (["--preset", "bch_sc", "--backend", "xla", "--list-size", "8"],
+     {"scl_decode": 1}),
+    (["--preset", "bch_sc", "--backend", "xla", "--big-stage", "pallas"],
+     {"stage_down": 105}),
+    (["--preset", "mixed_scl32", "--backend", "xla", "--subtree", "pallas",
+      "--big-stage", "pallas"], {"scl_subtree": 13, "stage_down": 15}),
+]
+
+
+@pytest.mark.parametrize("argv,per_call", _BENCH_ROWS,
+                         ids=["-".join(a[1::2]) for a, _ in _BENCH_ROWS])
+def test_decode_bench_row_on_card(cuda, argv, per_call):
+    """Each decode_bench row at B=256, 2 reps on the card: its timed window
+    launched its route's kernels twice each and nothing else."""
+    from polar_tpu_torch.benchmarks import decode_bench
+    rec = decode_bench.run(argv + ["--batch", "256", "--reps", "2"])
+    assert rec["launches"] == {k: 2 * n for k, n in per_call.items()}
+    assert rec["codewords_per_s"] == 256 / rec["ms_per_decode"] * 1e3 > 0
+    assert rec["device"] == torch.cuda.get_device_name(0) and rec["card"]

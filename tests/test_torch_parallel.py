@@ -26,7 +26,9 @@ LAUNCH_TIMEOUT = 120        # seconds for a 2-rank run; ~8 s here
 SIGMA = 0.9
 
 # one rank of the 2-rank gloo run: the sharded step, then a sweep over the
-# mesh and its resume; each rank prints one RESULT line
+# mesh and its resume; each rank writes its result to result_rank<r>.json
+# (not to the stdout both ranks share: two ranks' writes to one pipe can
+# interleave, and rank 0's stdout carries the sweep's printed records)
 _WORKER = r"""
 import json, pathlib, sys
 import torch.distributed as dist
@@ -53,13 +55,13 @@ recs = run_sweep(preset, frames=1024, mesh=mesh, state_path=str(state),
 saved = SweepState.load(state).__dict__ if mesh.rank == 0 else None
 again = run_sweep(preset, frames=1024, mesh=mesh, state_path=str(state),
                   progress=False)
-print("RESULT " + json.dumps({
+(out / f"result_rank{mesh.rank}.json").write_text(json.dumps({
     "rank": mesh.rank, "size": mesh.size, "axis": mesh.axis_names,
     "frames": res["frames"], "counts": res["counts"].tolist(),
     "own": [int(own["frame_errors"]), int(own["bit_errors"])],
     "recs": recs, "again": again, "saved": saved,
     "resaved": SweepState.load(state).__dict__ if mesh.rank == 0 else None,
-}), flush=True)
+}))
 dist.destroy_process_group()
 """
 
@@ -82,15 +84,14 @@ def _preset():
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    """Rank 0's and rank 1's RESULT of the 2-rank gloo run, its stdout and
+    """Rank 0's and rank 1's results of the 2-rank gloo run, its stdout and
     its output directory."""
     out = tmp_path_factory.mktemp("ranks")
     script = out / "worker.py"
     script.write_text(_WORKER)
     stdout = launch(2, [str(script), str(out)], timeout=LAUNCH_TIMEOUT)
-    res = sorted((json.loads(line[len("RESULT "):]) for line in
-                  stdout.splitlines() if line.startswith("RESULT ")),
-                 key=lambda r: r["rank"])
+    res = sorted((json.loads(p.read_text()) for p in
+                  out.glob("result_rank*.json")), key=lambda r: r["rank"])
     assert [r["rank"] for r in res] == [0, 1]
     return res, stdout, out
 

@@ -25,7 +25,9 @@ def test_import_leaves_no_jax_or_polar_tpu():
     mods = _modules()
     assert {"polar_tpu_torch.ops.cuda_scl", "polar_tpu_torch.parallel.mesh",
             "polar_tpu_torch.entry", "polar_tpu_torch.oracle",
-            "polar_tpu_torch.native"} <= set(mods) and len(mods) >= 20
+            "polar_tpu_torch.native", "polar_tpu_torch.bench",
+            "polar_tpu_torch.benchmarks.decode_bench",
+            "polar_tpu_torch.scripts.gen_sequences"} <= set(mods) and len(mods) >= 20
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
