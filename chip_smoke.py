@@ -12,17 +12,19 @@ decoder with the stage kernel of polar_tpu_torch/csrc/stage_down.cu; and
 `mixed_scl32` (N=4096, L=32) through the subtree kernel of
 scl_decode.cu, one launch a depth-1 child. Arikan specs at list sizes
 <= 8 decode through the redesigned Arikan capacity-8 body of
-scl_decode.cu (128 threads a codeword, packed bits, rank forks), every
-other spec through its general body (at L <= 8 a warp a path: bch_sc at
-L=1 one warp a codeword).
+scl_decode.cu (64 or 128 threads a codeword by a rule of its layout,
+stage 1 read through the channel row, packed bits, forks in registers),
+every other spec through its general body (at L <= 8 a warp a path:
+bch_sc at L=1 one warp a codeword).
 Phases (any failure exits non-zero):
 
 1. device: name, count, nvidia-smi name and power limit;
 2. build: one nvcc a source, and one for the op-kind clock build of
    scl_decode.cu (phase 23), all started together; seconds, ptxas's
-   registers and spills of each instance (an instance of the general body,
-   capacity 8 or 32, that spills fails), threads a block, and at bch_sc
-   for L = 1..8 threads and blocks an SM (occupancy API);
+   registers and spills of each instance (any instance that spills fails:
+   the general body's and the Arikan body's), threads a block of the
+   Arikan instances at ca_scl and arikan_sc, and at bch_sc for L = 1..8
+   threads and blocks an SM (occupancy API), at ca_scl blocks an SM;
 3. golden replay: results/golden_ca_scl_b256.npz (256 frames recorded
    from the independent C++ decoder) through scl_decode, 0 mismatches;
 4. scl_decode == plain PyTorch version on the card, bit for bit (u,
@@ -34,7 +36,8 @@ Phases (any failure exits non-zero):
    interval must overlap the recorded points in results/, and the pooled
    frame errors must agree with each by a two-proportion z-test, |z| < 3;
 6. scl_decode == plain bit for bit at the main path's batch (B=8192, and
-   16384); times by CUDA events at B=8192: kernel, plain version, bound;
+   16384); times by CUDA events at B=8192: kernel, plain version, bound,
+   and the time before the Arikan body's second redesign (PERF.md);
 7. scl_decode_traj (K2) == plain bit for bit: trajectory bits, span
    permutations, path metrics and the DecodeResult after scl_epilogue, on
    the small specs of phase 4 with L in {1, 3, 4, 8} and ca_scl at B=8192;
@@ -57,8 +60,9 @@ Phases (any failure exits non-zero):
    run (fused sweep K5, torch sweep K1, full-mode step K4, arikan_sc
    point K2), with the counts set to 0 just before it;
 11. times by CUDA events at B=8192 of each kernel and its plain version,
-   each kernel's bound, and the sweep's end-to-end cw/s per backend: all
-   frames over all wall time, and the harness's steady-state rate;
+   each kernel's bound (K2, K4, K5 beside their times before the Arikan
+   body's second redesign), and the sweep's end-to-end cw/s per backend:
+   all frames over all wall time, and the harness's steady-state rate;
 12. bch_sc (N=256 = 16 x 16 eBCH, K=128, SC; BASELINE config 3): the
    stage kernel stage_down (K6, csrc/stage_down.cu) == its plain version
    bit for bit for every input i < 15 of the 16x16 kernel at bch_sc's
@@ -180,8 +184,9 @@ Phases (any failure exits non-zero):
    in its timed window are `reps` x its decode's and no other kernel
    launched, the flagship launched K1 reps + 1 times (its warm-up too) and
    nothing else, and its rate is at most 1.05 x K1's own (phase 6; below
-   0.9 x it is printed as a finding); each row's rate beside its kernels'
-   own time in this run; gen_sequences' SPECS (used by phase 26(c)).
+   0.9 x it is printed as a finding), beside its rate before the Arikan
+   body's second redesign; each row's rate beside its kernels' own time
+   in this run; gen_sequences' SPECS (used by phase 26(c)).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one card and no network.
@@ -291,6 +296,24 @@ FLAGSHIP_LOW = 0.9      # below it: printed as a finding
 # others at L=1), printed beside phase 16's times
 BCH_PARENT_MS = {"scl_decode": 19.121, "scl_decode_traj": 9.376,
                  "scl_mc_traj": 8.843, "scl_mc_counters": 8.712}
+# the Arikan capacity-8 instances at B=8192 before the body's second
+# redesign (PERF.md: sim/kernel_times.py on an NVIDIA H100 80GB HBM3, 700 W;
+# K1, K2, K4, K5 at ca_scl L=8, and K2 at arikan_sc L=1), printed beside
+# phases 6 and 11's times
+ARIKAN_PARENT_MS = {("scl_decode", "ca_scl"): 5.8631,
+                    ("scl_decode_traj", "ca_scl"): 6.1418,
+                    ("scl_mc_traj", "ca_scl"): 6.1785,
+                    ("scl_mc_counters", "ca_scl"): 5.8185,
+                    ("scl_decode_traj", "arikan_sc"): 1.6348}
+# the flagship bench's line before it (PERF.md, PR 12's final chip run)
+FLAGSHIP_PARENT = 1_396_876
+
+
+def beside_parent(kernel: str, preset: str, ms: float) -> str:
+    """`ms` beside the Arikan instance's time before the second redesign."""
+    parent = ARIKAN_PARENT_MS.get((kernel, preset))
+    return (f" (before the second Arikan redesign: {parent} ms, "
+            f"x{parent / ms:.3f})" if parent else "")
 
 
 def all_launches() -> dict:
@@ -1497,7 +1520,9 @@ def entry_phase(card, kind, k1_ms: float, alone: dict) -> dict:
     k1_rate = BATCH / k1_ms * 1e3
     ratio = line["value"] / k1_rate
     print(f"entry: polar_tpu_torch.bench {json.dumps(line)} launches={counts}; "
-          f"K1 alone (phase 6) {k1_rate} cw_per_s, ratio {ratio} [{card}]")
+          f"K1 alone (phase 6) {k1_rate} cw_per_s, ratio {ratio}; before the "
+          f"second Arikan redesign {FLAGSHIP_PARENT} cw_per_s, "
+          f"x{line['value'] / FLAGSHIP_PARENT:.3f} [{card}]")
     if (set(line) != {"metric", "value", "unit"}
             or line["metric"] != "decoded_codewords_per_s_per_chip_n1024_scl8"
             or counts != {"scl_decode": ENTRY_REPS + 1}):
@@ -1690,15 +1715,19 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else "?"
             if "registers" in line or "spill" in line:
                 print(f"ptxas: {entry}: {line.strip()}")
-            general = "_c32" in entry or "_big_t" in entry or "scl_subtree_t" in entry
-            if general and any(int(v) for v in re.findall(r"(\d+) bytes spill",
-                                                          line)):
-                raise SystemExit(f"ptxas: the general body's instance {entry} "
-                                 f"spills: {line.strip()}")
+            # every instance: the general body's and the Arikan body's
+            if any(int(v) for v in re.findall(r"(\d+) bytes spill", line)):
+                raise SystemExit(f"ptxas: the instance {entry} spills: "
+                                 f"{line.strip()}")
     ca_kernels = cuda_scl.SclKernels(ca_scl().spec, 8)
-    print(f"threads a block: Arikan capacity-8 instances (scl_decode, "
-          f"scl_decode_traj, scl_mc_traj, scl_mc_counters; 2x2 kernels, L <= 8) "
-          f"{ca_kernels.block_threads('scl_mc_counters', dev)}; capacity 32 "
+    print("threads a block: Arikan capacity-8 instances (2x2 kernels, L <= 8; "
+          "`fast_threads`) at ca_scl L=8 "
+          + ", ".join(f"{k} {ca_kernels.block_threads(k, dev)}"
+                      for k in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
+                                "scl_mc_counters"))
+          + f", at arikan_sc L=1 "
+          f"{cuda_scl.SclKernels(get_preset('arikan_sc').spec, 1).block_threads('scl_decode_traj', dev)}"
+          f"; capacity 32 "
           f"{cuda_scl.SclKernels(ca_scl().spec, 32).block_threads('scl_decode', dev)}")
     bch8 = get_preset("bch_sc").spec
     for L in range(1, 9):
@@ -1834,7 +1863,8 @@ def main() -> int:
               f"[{card}]")
     k1_bound = bound(BATCH * (4 * spec.N + spec.N + 5), BATCH * element_ops(spec, L))
     print(f"kernel: scl_decode ca_scl B={BATCH} ms={ms} "
-          f"cw_per_s={BATCH / ms * 1e3} [{card}]")
+          f"cw_per_s={BATCH / ms * 1e3}{beside_parent('scl_decode', 'ca_scl', ms)} "
+          f"[{card}]")
     print(f"plain: scl_decode ca_scl B={BATCH} ms={plain_ms} [{card}]")
     print(f"bound: scl_decode {k1_bound} [{card}]")
     rows = {"scl_decode": dict(k1_bound, max_abs_err=max_err, ms=ms,
@@ -2074,7 +2104,8 @@ def main() -> int:
         ms=time_ms(lambda: sc.trajectory(va), iters=20, reps=3),
         plain_ms=time_ms(lambda: sc.plain_trajectory(va), iters=2, warmup=1))
     ca_traj_ms = time_ms(lambda: ca_traj.trajectory(v), iters=10)
-    print(f"kernel: scl_decode_traj ca_scl L={L} B={BATCH} ms={ca_traj_ms} [{card}]")
+    print(f"kernel: scl_decode_traj ca_scl L={L} B={BATCH} ms={ca_traj_ms}"
+          f"{beside_parent('scl_decode_traj', 'ca_scl', ca_traj_ms)} [{card}]")
     key = step_seed(SWEEP_SEED, 99, 0, 0)
     nq = len(full.decoder.spans)
     rows["scl_mc_traj"] = dict(
@@ -2109,7 +2140,8 @@ def main() -> int:
                  "scl_subtree": "mixed_scl32 L=32, the 13 launches of a decode"
                  }.get(name, f"ca_scl L={L}")
         b = MIXED_BATCH if name == "scl_subtree" else BATCH
-        print(f"time: {name} {shape} B={b} ms={r['ms']} "
+        parent = beside_parent(name, shape.split()[0], r["ms"])
+        print(f"time: {name} {shape} B={b} ms={r['ms']}{parent} "
               f"cw_per_s={b / r['ms'] * 1e3} plain_ms={r['plain_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}: bytes={r['bytes']} "
               f"{r['t_bytes']} ms, element_ops={r['ops']} {r['t_ops']} ms) "

@@ -28,8 +28,9 @@
 //                    build_plain_subtree states the contract).
 //
 // Two bodies. K1, K2, K4 and K5 of Arikan specs (2x2 kernels only) at
-// P <= 8 run `fast_body`, the body redesigned for Hopper (128 threads a
-// codeword, packed bits, rank forks, warp-0 ops; its note below); every
+// P <= 8 run `fast_body`, the body redesigned for Hopper (64 or 128
+// threads a codeword, stage 1 read through the channel row, packed bits,
+// forks in registers, leader-warp ops; its note below); every
 // other instance runs the general body `scl_body`, whose design the rest
 // of this note describes. `arikan8` is the rule.
 //
@@ -156,6 +157,8 @@ struct SclArgs {
   int n_ops, N, m, P, Q, K, W, B;
   int n_lam, n_dec, n_maps;  // LLR floats, decision bytes, path-map bytes
   int big;                   // 1: some kernel is l > 2 (the BIG instances)
+  int view1;                 // the Arikan capacity-8 body reads stage 1
+                             // through the channel row (no node op reads it)
 };
 
 namespace {
@@ -216,6 +219,17 @@ __device__ __forceinline__ void clk_mark(int slot) {
 __device__ __forceinline__ void clk_count(int slot, int n) {
   if (threadIdx.x == 0) clk_acc[slot] += (unsigned long long)n;
 }
+// the same by the thread `me` (the Arikan body's leader warp, lane 0)
+__device__ __forceinline__ void clk_mark_by(bool me, int slot) {
+  if (me) {
+    const long long now = clock64();
+    clk_acc[slot] += (unsigned long long)(now - clk_last);
+    clk_last = now;
+  }
+}
+__device__ __forceinline__ void clk_count_by(bool me, int slot, int n) {
+  if (me) clk_acc[slot] += (unsigned long long)n;
+}
 __device__ __forceinline__ void clk_end() {
   clk_mark(kClkEpilogue);
   if (threadIdx.x == 0 && blockIdx.x < kClockBlocks) {
@@ -227,6 +241,8 @@ __device__ __forceinline__ void clk_end() {
 __device__ __forceinline__ void clk_begin() {}
 __device__ __forceinline__ void clk_mark(int) {}
 __device__ __forceinline__ void clk_count(int, int) {}
+__device__ __forceinline__ void clk_mark_by(bool, int) {}
+__device__ __forceinline__ void clk_count_by(bool, int, int) {}
 __device__ __forceinline__ void clk_end() {}
 #endif
 
@@ -1428,73 +1444,120 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 
 // ---- the Arikan capacity-8 body: K1, K2, K4, K5 of Arikan specs, P <= 8 ----
 //
-// The op-kind clock of the general body above on ca_scl (L=8, K5) put
-// 60% of a block's time in the R1/SPC fork chains, 9% in the least-reliable
-// selection and 7.5% in the REP forks: each fork ran two loops of 2P
-// shuffles with divisions by a run-time P, each selection round a 5-step
-// shuffle argmin, and 7 of the block's 8 warps waited at a barrier. This
-// body keeps the decisions and metrics of the general one bit for bit and
-// changes how it gets them:
-// - A fork writes its 2P candidates to shared memory; each lane ranks its
-//   candidate against all 2P in one unrolled loop of independent reads and
-//   the survivors are scattered by rank (`fork_rank`).
-// - Selection is one pass: each input's rank by (|v|, j) among its path's
-//   n inputs; ranks < n_min give the positions in order. That equals the
-//   rounds of extract_mins (ops/scl.py) wherever every |v| < 1e30 (kBig);
-//   at or above it the rounds pick one position again, and the chain's
-//   head repeats that rule (`rstar`), so the two agree there too.
-// - Fewer threads and packed bits: T threads a codeword (a template
-//   parameter), decisions and trajectory bits as 32-bit words written by
-//   __ballot_sync, path maps of 8 bytes permuted by __byte_perm. ca_scl's
-//   K5 state falls from ~64 KB to ~42 KB, so five blocks share an SM.
-// - Fewer barriers: an op of P*n <= kSmallWork elements (and every LEAF)
-//   runs in warp 0 alone with __syncwarp; the fork chains and the path-map
-//   updates are warp 0's too, so a block barrier sits only where the work
-//   moves between warp 0 and the block.
-// - The R1/SPC inverse transform u = x F^(x)k works on the bit words:
-//   shift-XOR steps inside a word, XORs of words for spans above 32.
-// Both settings were timed on an H100 at ca_scl (PERF.md, PR 5): 64 or
-// 256 threads a codeword and warp-0 thresholds of 64 or 128 were slower.
+// First redesign (on the general body's op-kind clock at ca_scl, L=8, K5:
+// 60% of a block in the R1/SPC fork chains, each fork two loops of 2P
+// shuffles with divisions by a run-time P, 7 of 8 warps waiting): forks
+// ranked from a candidate table, a one-pass selection, decisions and
+// trajectory bits as 32-bit words written by __ballot_sync, path maps of 8
+// bytes permuted by __byte_perm, and ops of P*n <= kSmallWork elements
+// (and every LEAF) in warp 0 alone with __syncwarp, so a block barrier
+// sits only where the work moves between warp 0 and the block. The R1/SPC
+// inverse transform u = x F^(x)k works on the bit words.
+//
+// Second redesign. Its own clock (sim/kernel_times.py --split, ca_scl,
+// K5, on an H100) put 31% of 0.93M cycles a block in the fork chains
+// (~1.3k cycles a round), 18% in DOWN and 16% in the selection, whose
+// rank costs n compares an input (8 x 128^2 at the n = 128 SPC node); and
+// ~42 KB of shared memory a block held an SM to 5 codewords, 20 of its 64
+// warps. The lever is codewords in flight and a shorter chain:
+// - Stage 1 is not stored (`view1`, where no node op reads it): its rows
+//   are f(x[j], x[j + n1]) for every path (DOWN_FRESH) or x[j] (1 - 2d) +
+//   x[j + n1] (DOWN_DYN), d the bit of stage 1's child-0 decisions at the
+//   row of path map 1. Map 0 (stage 1's rows) is reset at the stage-1
+//   DOWN_DYN and from then on permuted with map 1, which nothing resets
+//   later, so the row map0[p] was made from decision row map1_then[map0[p]]
+//   = map1_now[p]: the stage-2 DOWNs recompute the row from the channel row
+//   and map 1, the same arithmetic, so bit for bit. It saves P*N/2 floats
+//   (16 KB at ca_scl). u_true is kept as bits. (Stage 2 the same way: 8 KB
+//   more, 12-15 blocks an SM, and slower on an H100: not taken.)
+// - Threads a codeword by a rule of the layout (`fast_threads`): 128 while
+//   the registers (kFastRegisters a thread) cap the blocks an SM, 64 where
+//   shared memory would hold more 128-thread blocks than the registers.
+//   ca_scl K5 (~26 KB): 8 blocks of 128; K1 (~21 KB): 10 of 64.
+// - The leader's part runs on the warp `leader_warp` picks from the warp
+//   slots the block got, so the chains of an SM's blocks spread over its
+//   four sub-partitions (at 64 threads a fixed warp 0 sat on two of them).
+// - The fork in registers (`fork_reg`): lane p holds path p's metric, node
+//   map, eta and least-reliable values; a round gathers its penalty through
+//   the node map by a shuffle, ranks the 2P candidates by shuffles and takes
+//   survivor r by a ballot on rank == r; no shared memory and no barrier in
+//   a round. The flips on each survivor's line are carried forward as a
+//   mask (no perms/flips record to walk back). Shuffles sit outside every
+//   branch and the compares are bitwise: nvcc wraps a shuffle behind a
+//   branch, and a short-circuit && / ||, in a reconvergence barrier.
+// - Nodes of n >= 64 select by extraction: a warp a path, n_min rounds of
+//   a warp minimum by (|v|, j), each input a lane's (n / 32 a lane).
+// Every decision and metric stays the first redesign's, bit for bit.
 constexpr int kSmallWork = 32;
-constexpr int kFastThreads = 128;
+// registers a thread at the launch bounds: 65536 / 64 / T blocks an SM
+constexpr int kFastRegisters = 64;
+constexpr int kFastExtract = 64;    // from this n (to 1024) the selection extracts
 
 // Node-local state of the Arikan capacity-8 body (static shared memory);
 // ops/cuda_scl.py FAST_STATIC_BYTES mirrors its size.
 struct Fast {
   int4 stage[kMaxStages];          // n, LLR offset, decision word offset
-  float4 cand[4];                  // fork candidates, c = bit * P + p
   float pm[8];
-  float spm[8];                    // fork survivors' metrics, by rank
   float vals[9][8];                // least-reliable |llr| by rank, path
   float s0[8], s1[8];              // REP sums
   float ok[8];                     // CRC pass per path (0/1)
   short poss[9][8];                // their positions
   unsigned par[8];                 // SPC parity per path, 0 between nodes
   unsigned red[8];                 // block reductions
-  unsigned char src[8];            // fork survivors' candidates, by rank
   unsigned char rstar[8];          // inputs below kBig per path (<= n_min)
   unsigned char nmap[8];           // node-local path map (identity beyond P)
   unsigned char bit[8];            // fork bit / eta
-  unsigned char perms[8][8];
-  unsigned char flips[8][8];
-  unsigned char flipfin[8][8];
+  unsigned char flipm[8];          // R1/SPC: bit r = the flip of round r
+                                   // on path p's line (`fork chain`)
   int best;
 };
 
+// The warp of a block of kW warps that runs the leader's part (ops of
+// P*n <= kSmallWork, the forks, the path maps), from the warp slots
+// (%warpid) the block got, `slot[w]` (warp slot s issues from the SM's
+// sub-partition s % 4): the one on sub-partition (s0 + ((s0 >> 2) & (kW -
+// 1))) % 4, s0 the block's least slot, else warp 0. An H100 gives a 4-warp block the
+// slots 4k .. 4k + 3 with warp 0 on sub-partition k % 4, which the rule
+// keeps; a 2-warp block 2k, 2k + 1 with warp 0 on sub-partition 0 or 2,
+// where the rule takes sub-partitions 0, 2, 1, 3 for k = 0, 1, 2, 3 (mod
+// 4). So the leaders of an SM's blocks spread over its four
+// sub-partitions.
+__device__ __forceinline__ unsigned warp_slot() {
+#ifdef __CUDA_ARCH__
+  unsigned s;
+  asm volatile("mov.u32 %0, %%warpid;" : "=r"(s));
+  return s;
+#else
+  return 0u;
+#endif
+}
+
+__device__ __forceinline__ int leader_warp(const unsigned* slot, int kW) {
+  unsigned s0 = slot[0];
+  for (int w = 1; w < kW; ++w) s0 = min(s0, slot[w]);
+  const unsigned want = (s0 + ((s0 >> 2) & (unsigned)(kW - 1))) & 3u;
+  for (int w = 0; w < kW; ++w)
+    if ((slot[w] & 3u) == want) return w;
+  return 0;
+}
+
 // Byte offsets of the body's dynamic shared memory: LLR buffers P*(N-1)
-// f32, the channel LLRs N f32 (Monte-Carlo), decision words (two children
-// of ceil(P*n_s/32) words a stage), trajectory rows (P rows of ceil(N/32)
-// words), path maps (3 a stage, 8 bytes each), span perms and suffix
-// indices (Q*P bytes each), u_true N bytes (Monte-Carlo). ops/cuda_scl.py
+// f32, or P*(N/2 - 1) without stage 1 (`view`; at least 2N bytes in the
+// Monte-Carlo kernels: the prologue's u and x bytes), the channel LLRs N
+// f32 (Monte-Carlo), decision words (two children of ceil(P*n_s/32) words
+// a stage), trajectory rows (P rows of ceil(N/32) words), path maps (3 a
+// stage, 8 bytes each), span perms and suffix indices (Q*P bytes each),
+// u_true as ceil(N/32) words (Monte-Carlo). ops/cuda_scl.py
 // `fast_smem_bytes` mirrors it.
 struct FastLayout {
   int chan, dec, traj, maps, tperm, ut, total;
 };
 
 __host__ __device__ inline FastLayout fast_layout(int N, int m, int P, int Q,
-                                                 bool mc) {
+                                                 bool mc, bool view) {
   FastLayout l;
-  int off = 4 * P * (N - 1);
+  int off = 4 * P * ((view ? N >> 1 : N) - 1);
+  if (mc && off < 2 * N) off = 2 * N;
   l.chan = off;
   if (mc) off += 4 * N;
   l.dec = off;
@@ -1506,8 +1569,9 @@ __host__ __device__ inline FastLayout fast_layout(int N, int m, int P, int Q,
   off += 24 * m;
   l.tperm = off;
   off += 2 * Q * P;
+  off = (off + 3) & ~3;
   l.ut = off;
-  if (mc) off += N;
+  if (mc) off += 4 * ((N + 31) >> 5);
   l.total = off;
   return l;
 }
@@ -1549,6 +1613,90 @@ __device__ __forceinline__ unsigned arikan_word(unsigned w, int n) {
   return w;
 }
 
+// 2P -> P fork in registers, one warp, all 32 lanes (P <= 8): lane p < P
+// holds path p's candidates a = pm + pen0 (c = p) and b = pm + pen1 (c =
+// P + p). Lane l < 2P ranks candidate l by (metric, c) against all 2P by
+// shuffles; lane r < P takes survivor r from the lane whose rank is r (a
+// ballot a survivor): metric, parent path, bit. == `fork_rank`.
+__device__ __forceinline__ void fork_reg(int lane, int P, float a, float b,
+                                         float& npm, int& nperm, int& nbit) {
+  const float bl = __shfl_sync(kFull, b, (lane - P) & 31);
+  const float v = lane < P ? a : bl;
+  // every shuffle and ballot unconditional, and the compares bitwise: a
+  // branch on P, or a short-circuit && / ||, costs a reconvergence
+  // barrier; four partial counts, not one chain of 16 increments
+  int r4[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float oa = __shfl_sync(kFull, a, k);
+    const float ob = __shfl_sync(kFull, b, k);
+    r4[(2 * k) & 3] += (k < P) & ((oa < v) | ((oa == v) & (k < lane)));
+    r4[(2 * k + 1) & 3] += (k < P) & ((ob < v) | ((ob == v) & (P + k < lane)));
+  }
+  const int rank = (r4[0] + r4[1]) + (r4[2] + r4[3]);
+  int src = 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const unsigned w = __ballot_sync(kFull, (lane < 2 * P) & (rank == r));
+    src = lane == r ? __ffs(w) - 1 : src;
+  }
+  npm = __shfl_sync(kFull, v, src);
+  nbit = src >= P;
+  nperm = src - (nbit ? P : 0);
+  if (lane >= P) { npm = 0.f; nperm = 0; nbit = 0; }
+}
+
+// The least-reliable selection of one path's n inputs (64 <= n <= 1024),
+// by one warp: n_min rounds of a warp minimum by (|v|, j) over the inputs
+// not yet taken (input j is lane j & 31's), positions and |v| in order ==
+// the one-pass rank's; the inputs below kBig (the chain's `rstar` rule) and
+// the signs' parity (SPC) a path.
+template <class SM>
+__device__ void extract_path(const float* row, int n, int n_min, bool spc,
+                             int p, SM& sm, int lane) {
+  const int k = n >> 5;
+  int below = 0;
+  unsigned neg = 0u;
+  for (int i = 0; i < k; ++i) {
+    const float v = row[lane + 32 * i];
+    below += fabsf(v) < kBig;
+    neg ^= (unsigned)(v < 0.f);
+  }
+  if (spc) {
+    neg = __reduce_xor_sync(kFull, neg);
+    if (lane == 0) sm.par[p] = neg;
+  }
+  if (n_min == 0) return;
+  below = __reduce_add_sync(kFull, below);
+  unsigned taken = 0u;
+  for (int r = 0; r < n_min; ++r) {
+    float bv = __int_as_float(0x7f800000);   // +inf at no position
+    int bj = 0x7fffffff;
+    for (int i = 0; i < k; ++i) {
+      if ((taken >> i) & 1u) continue;
+      const int j = lane + 32 * i;
+      const float av = fabsf(row[j]);
+      const bool lt = (av < bv) | ((av == bv) & (j < bj));
+      bv = lt ? av : bv;
+      bj = lt ? j : bj;
+    }
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oj = __shfl_xor_sync(kFull, bj, off);
+      const bool lt = (ov < bv) | ((ov == bv) & (oj < bj));
+      bv = lt ? ov : bv;
+      bj = lt ? oj : bj;
+    }
+    if ((bj & 31) == lane) taken |= 1u << (bj >> 5);
+    if (lane == 0) {
+      sm.poss[r][p] = (short)bj;
+      sm.vals[r][p] = bv;
+    }
+  }
+  if (lane == 0) sm.rstar[p] = (unsigned char)min(below, n_min);
+}
+
 template <int SRC, int OUT, int T>
 __device__ __forceinline__ void fast_body(const SclArgs& a) {
   static_assert(OUT != kCounters || SRC == kMonteCarlo,
@@ -1559,7 +1707,8 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Fast sm;
   const int N = a.N, m = a.m, P = a.P, Q = a.Q, K = a.K, W = a.W;
-  const FastLayout ly = fast_layout(N, m, P, Q, SRC == kMonteCarlo);
+  const bool view1 = a.view1 != 0;
+  const FastLayout ly = fast_layout(N, m, P, Q, SRC == kMonteCarlo, view1);
   float* lam = reinterpret_cast<float*>(smem);
   float* chan = reinterpret_cast<float*>(smem + ly.chan);
   unsigned* decw = reinterpret_cast<unsigned*>(smem + ly.dec);
@@ -1567,9 +1716,10 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   uint2* maps = reinterpret_cast<uint2*>(smem + ly.maps);
   unsigned char* tperm = smem + ly.tperm;
   unsigned char* sidx = tperm + Q * P;
-  unsigned char* ut = smem + ly.ut;
+  unsigned* utw = reinterpret_cast<unsigned*>(smem + ly.ut);
   const int R = (N + 31) >> 5;     // words of a trajectory row
   const int n_maps = 3 * m;        // stage s: rlam, rdec child 0, child 1
+  const int n1 = N >> 1;           // stage 1's block
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -1577,7 +1727,8 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   if (tid <= m) {
     int dw = 0;
     for (int s = 1; s < tid; ++s) dw += 2 * ((P * (N >> s) + 31) >> 5);
-    sm.stage[tid] = make_int4(N >> tid, P * (N - 2 * (N >> tid)), dw, 0);
+    const int lo = P * ((view1 ? n1 : N) - 2 * (N >> tid));
+    sm.stage[tid] = make_int4(N >> tid, lo, dw, 0);
   }
   if (tid < 8) {
     sm.nmap[tid] = (unsigned char)tid;
@@ -1585,10 +1736,15 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   }
   const float* x;
   if constexpr (SRC == kMonteCarlo) {
-    // the LLR buffers are scratch until the first DOWN
-    mc_prologue<false, T>(a, a.st, chan, ut,
-                          reinterpret_cast<unsigned char*>(lam), sm, tid, lane,
-                          warp);
+    // the LLR buffers are scratch until the first DOWN: u_true and x bytes
+    unsigned char* ub = reinterpret_cast<unsigned char*>(lam);
+    mc_prologue<false, T>(a, a.st, chan, ub, ub + N, sm, tid, lane, warp);
+    __syncthreads();
+    for (int base = warp * 32; base < R * 32; base += T) {
+      const int t = base + lane;
+      const unsigned w = __ballot_sync(kFull, t < N && ub[t]);
+      if (lane == 0) utw[base >> 5] = w;
+    }
     clk_mark(kClkPrologue);
     x = chan;
   } else {
@@ -1597,7 +1753,12 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   for (int i = tid; i < P * R; i += T) trajw[i] = 0u;
   for (int i = tid; i < n_maps; i += T) maps[i] = ident_map();
   if (tid < P) sm.pm[tid] = (tid == 0) ? 0.f : kBig;
+  if (lane == 0) sm.red[warp] = warp_slot();
   __syncthreads();
+  // the op loop's warps, counted from the leader
+  const int rwarp = (warp - leader_warp(sm.red, kW)) & (kW - 1);
+  const int rtid = rwarp * 32 + lane;
+  const bool clk0 = rtid == 0;     // the op-kind clock's thread
 
   auto lam_at = [&](int s) { return lam + sm.stage[s].y; };
   auto dec_at = [&](int s, int c) {
@@ -1609,6 +1770,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   auto bit_at = [](const unsigned* w, int i) { return (w[i >> 5] >> (i & 31)) & 1u; };
 
   int q = 0;                 // trajectory span of the next node op
+  bool dyn1 = false;         // stage 1 holds DOWN_DYN rows (view1)
   bool prev_small = false;
   int prev_slot = kClkSetup;
   int4 nxt = a.ops[0];
@@ -1618,45 +1780,64 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     const int kind = op.x, lvl = op.y, t0 = op.z, child = op.w;
     const int n = sm.stage[lvl].x;
     const int ln = __ffs(n) - 1;
-    // the group that runs this op: warp 0 alone, or the whole block
+    // the group that runs this op: the leader warp alone, or the block
     const bool small = kind >= LEAF || P * n <= kSmallWork;
     if (small && prev_small) __syncwarp(); else __syncthreads();
-    clk_mark(prev_slot);
+    clk_mark_by(clk0, prev_slot);
     prev_small = small;
     const int qq = q;
     if (kind >= R0) ++q;
-    if (small && warp != 0) continue;
-    const int gsize = small ? 32 : T, grank = small ? lane : tid;
-    const int gwarps = small ? 1 : kW, gwarp = small ? 0 : warp;
+    if (kind <= DOWN_DYN && lvl == 1) dyn1 = kind == DOWN_DYN;
+    if (small && rwarp != 0) continue;
+    const int gsize = small ? 32 : T, grank = small ? lane : rtid;
+    const int gwarps = small ? 1 : kW, gwarp = small ? 0 : rwarp;
     auto gsync = [&]() { if (small) __syncwarp(); else __syncthreads(); };
 
     if (kind == DOWN_FRESH || kind == DOWN_DYN) {
       const int s = lvl;
-      float* out = lam_at(s);
-      const float* par = (s > 1) ? lam_at(s - 1) : nullptr;
-      const unsigned char* rl = (s > 1) ? map_at(3 * (s - 2)) : nullptr;
-      const unsigned* d0 = dec_at(s, 0);
-      const unsigned char* rd0 = map_at(3 * (s - 1) + 1);
-      for (int e = grank; e < P * n; e += gsize) {
-        const int p = e >> ln, j = e & (n - 1);
-        float va, vb;
-        if (par == nullptr) {
-          va = x[j];
-          vb = x[j + n];
-        } else {
-          const float* row = par + rl[p] * 2 * n;
-          va = row[j];
-          vb = row[j + n];
+      if (!(view1 && s == 1)) {
+        float* out = lam_at(s);
+        const bool from_view = view1 && s == 2;
+        const float* par = (s > 1 && !from_view) ? lam_at(s - 1) : nullptr;
+        const unsigned char* rl = (s > 1) ? map_at(3 * (s - 2)) : nullptr;
+        const unsigned* d0 = dec_at(s, 0);
+        const unsigned char* rd0 = map_at(3 * (s - 1) + 1);
+        // stage 1's row of path p at j1 < n1, from the channel row
+        const unsigned* d1 = dec_at(1, 0);
+        const unsigned char* r1 = map_at(1);
+        auto stage1 = [&](int p, int j1) {
+          const float xa = x[j1], xb = x[j1 + n1];
+          if (!dyn1) {
+            const float sg = ((xa < 0.f) != (xb < 0.f)) ? -1.f : 1.f;
+            return sg * fminf(fabsf(xa), fabsf(xb));
+          }
+          const float d = (float)bit_at(d1, r1[p] * n1 + j1);
+          return xa * (1.f - 2.f * d) + xb;
+        };
+        for (int e = grank; e < P * n; e += gsize) {
+          const int p = e >> ln, j = e & (n - 1);
+          float va, vb;
+          if (s == 1) {
+            va = x[j];
+            vb = x[j + n];
+          } else if (from_view) {
+            va = stage1(p, j);
+            vb = stage1(p, j + n);
+          } else {
+            const float* row = par + rl[p] * 2 * n;
+            va = row[j];
+            vb = row[j + n];
+          }
+          float v;
+          if (kind == DOWN_FRESH) {
+            const float sg = ((va < 0.f) != (vb < 0.f)) ? -1.f : 1.f;
+            v = sg * fminf(fabsf(va), fabsf(vb));
+          } else {
+            const float d = (float)bit_at(d0, rd0[p] * n + j);
+            v = va * (1.f - 2.f * d) + vb;
+          }
+          out[e] = v;
         }
-        float v;
-        if (kind == DOWN_FRESH) {
-          const float sg = ((va < 0.f) != (vb < 0.f)) ? -1.f : 1.f;
-          v = sg * fminf(fabsf(va), fabsf(vb));
-        } else {
-          const float d = (float)bit_at(d0, rd0[p] * n + j);
-          v = va * (1.f - 2.f * d) + vb;
-        }
-        out[e] = v;
       }
       if (grank == 0) maps[3 * (s - 1)] = ident_map();
       prev_slot = kClkDown;
@@ -1726,7 +1907,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
         sm.s1[grank] = fmaxf(L[grank], 0.f);
       }
       gsync();
-      clk_mark(kClkRepSums);
+      clk_mark_by(clk0, kClkRepSums);
       if (gwarp == 0) {
         if (kind == LEAF_FROZEN || P == 1) {
           if (lane < P) {
@@ -1743,7 +1924,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
           const float s0 = lane < P ? sm.s0[lane] : 0.f;
           const float s1 = lane < P ? sm.s1[lane] : 0.f;
           float npm; int nperm, nbit;
-          fork_rank(sm, lane, P, pmv, s0, s1, npm, nperm, nbit);
+          fork_reg(lane, P, pmv + s0, pmv + s1, npm, nperm, nbit);
           if (lane < P) {
             sm.pm[lane] = npm;
             sm.nmap[lane] = (unsigned char)nperm;
@@ -1774,60 +1955,72 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     const int rounds = spc ? (P == 1 ? 0 : min(P, n - 1)) : min(P - 1, n);
     const int n_min = spc ? rounds + 1 : rounds;
     const int first = spc ? 1 : 0;
-    clk_count(kClkRounds, rounds);
-    // 1. each input's rank by (|v|, j) in its path: ranks < n_min give the
-    //    least-reliable positions in order; the signs' parity (SPC)
-    for (int base = gwarp * 32; base < cw * 32; base += gsize) {
-      const int e = base + lane;
-      const bool in = e < P * n;
-      const float v = in ? L[e] : 0.f;
-      if (in && n_min > 0) {
-        const int p = e >> ln, j = e & (n - 1);
-        const float av = fabsf(v);
-        const float* row = L + p * n;
-        int rank = 0, below = 0;
-        if (n >= 4) {
-          // rows start at multiples of 4 floats: 16-byte reads
-          const float4* row4 = reinterpret_cast<const float4*>(row);
-          for (int k4 = 0; k4 < (n >> 2); ++k4) {
-            const float4 w4 = row4[k4];
-            const float ak[4] = {fabsf(w4.x), fabsf(w4.y), fabsf(w4.z), fabsf(w4.w)};
+    clk_count_by(clk0, kClkRounds, rounds);
+    // 1. the n_min least-reliable positions of each path in order, and the
+    //    signs' parity (SPC): by extraction, a warp a path, for
+    //    kFastExtract <= n <= 1024; else each input's rank by (|v|, j) in
+    //    its path, ranks < n_min giving the positions
+    if (n >= kFastExtract && n <= 1024) {
+      for (int p = gwarp; p < P; p += gwarps)
+        extract_path(L + p * n, n, n_min, spc, p, sm, lane);
+    } else {
+      for (int base = gwarp * 32; base < cw * 32; base += gsize) {
+        const int e = base + lane;
+        const bool in = e < P * n;
+        const float v = in ? L[e] : 0.f;
+        if (in && n_min > 0) {
+          const int p = e >> ln, j = e & (n - 1);
+          const float av = fabsf(v);
+          const float* row = L + p * n;
+          int rank = 0, below = 0;
+          if (n >= 4) {
+            // rows start at multiples of 4 floats: 16-byte reads; four
+            // partial counts, not one chain of n increments
+            const float4* row4 = reinterpret_cast<const float4*>(row);
+            int r4[4] = {0, 0, 0, 0}, b4[4] = {0, 0, 0, 0};
+            for (int k4 = 0; k4 < (n >> 2); ++k4) {
+              const float4 w4 = row4[k4];
+              const float ak[4] = {fabsf(w4.x), fabsf(w4.y), fabsf(w4.z), fabsf(w4.w)};
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int k = 4 * k4 + i;
-              rank += (ak[i] < av) || (ak[i] == av && k < j);
-              below += ak[i] < kBig;
+              for (int i = 0; i < 4; ++i) {
+                const int k = 4 * k4 + i;
+                r4[i] += (ak[i] < av) | ((ak[i] == av) & (k < j));
+                b4[i] += ak[i] < kBig;
+              }
+            }
+            rank = (r4[0] + r4[1]) + (r4[2] + r4[3]);
+            below = (b4[0] + b4[1]) + (b4[2] + b4[3]);
+          } else {
+            for (int k = 0; k < n; ++k) {
+              const float ak = fabsf(row[k]);
+              rank += (ak < av) | ((ak == av) & (k < j));
+              below += ak < kBig;
             }
           }
-        } else {
-          for (int k = 0; k < n; ++k) {
-            const float ak = fabsf(row[k]);
-            rank += (ak < av) || (ak == av && k < j);
-            below += ak < kBig;
+          if (rank < n_min) {
+            sm.poss[rank][p] = (short)j;
+            sm.vals[rank][p] = av;
+            if (rank == 0) sm.rstar[p] = (unsigned char)min(below, n_min);
           }
         }
-        if (rank < n_min) {
-          sm.poss[rank][p] = (short)j;
-          sm.vals[rank][p] = av;
-          if (rank == 0) sm.rstar[p] = (unsigned char)min(below, n_min);
-        }
-      }
-      if (spc) {
-        const unsigned neg = __ballot_sync(kFull, in && v < 0.f);
-        if (lane == 0) {
-          if (n >= 32) {
-            atomicXor(&sm.par[base >> ln], (unsigned)__popc(neg) & 1u);
-          } else {
-            for (int sg = 0; sg < 32 && base + sg < P * n; sg += n)
-              atomicXor(&sm.par[(base + sg) >> ln],
-                        (unsigned)__popc((neg >> sg) & ((1u << n) - 1u)) & 1u);
+        if (spc) {
+          const unsigned neg = __ballot_sync(kFull, in && v < 0.f);
+          if (lane == 0) {
+            if (n >= 32) {
+              atomicXor(&sm.par[base >> ln], (unsigned)__popc(neg) & 1u);
+            } else {
+              for (int sg = 0; sg < 32 && base + sg < P * n; sg += n)
+                atomicXor(&sm.par[(base + sg) >> ln],
+                          (unsigned)__popc((neg >> sg) & ((1u << n) - 1u)) & 1u);
+            }
           }
         }
       }
     }
     gsync();
-    clk_mark(kClkSelect);
-    // 2. the fork chain, warp 0: metrics, node map and eta in registers
+    clk_mark_by(clk0, kClkSelect);
+    // 2. the fork chain, warp 0, in registers: lane p < P holds the metric,
+    //    node map and eta of survivor p and path p's least-reliable values
     if (gwarp == 0) {
       int nm = lane < P ? lane : 0;
       float pmv = lane < P ? sm.pm[lane] : 0.f;
@@ -1854,26 +2047,26 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
           pmv = pmv + (float)eta * sm.vals[0][lane];   // mandatory parity fix
         }
       }
-      __syncwarp();
+      // round r's penalty of path p is vals[r + first][p] (a read that no
+      // round waits on); SPC's parity term vals[0][p] in v0
+      const float v0 = lane < P ? sm.vals[0][lane] : 0.f;
+      // the flips of each round on the line of survivor p, carried forward
+      // (defer_flips walks the record back instead)
+      unsigned fm = 0u;
       for (int r = 0; r < rounds; ++r) {
-        float pen = 0.f;
-        if (lane < P) {
-          pen = sm.vals[r + first][nm];
-          if (spc) pen = pen + (1.f - 2.f * (float)eta) * sm.vals[0][nm];
-        }
+        const float vr = lane < P ? sm.vals[r + first][lane] : 0.f;
+        float pen = __shfl_sync(kFull, vr, nm);
+        const float f0 = __shfl_sync(kFull, v0, nm);
+        if (spc) pen = pen + (1.f - 2.f * (float)eta) * f0;
         float npm; int nperm, nbit;
-        fork_rank(sm, lane, P, pmv, 0.f, pen, npm, nperm, nbit);
+        fork_reg(lane, P, pmv + 0.f, pmv + pen, npm, nperm, nbit);
         nm = __shfl_sync(kFull, nm, nperm);
         eta = __shfl_sync(kFull, eta, nperm) ^ nbit;
+        fm = __shfl_sync(kFull, fm, nperm) | ((unsigned)nbit << r);
         pmv = npm;
-        if (lane < P) {
-          sm.perms[r][lane] = (unsigned char)nperm;
-          sm.flips[r][lane] = (unsigned char)nbit;
-        }
       }
-      __syncwarp();
       if (lane < P) {
-        defer_flips(sm, rounds, lane);
+        sm.flipm[lane] = (unsigned char)fm;
         sm.pm[lane] = pmv;
         sm.nmap[lane] = (unsigned char)nm;
         sm.bit[lane] = (unsigned char)eta;
@@ -1883,7 +2076,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
       fast_perm(maps, n_maps, sm.nmap, reset, lane);
     }
     gsync();
-    clk_mark(kClkChain);
+    clk_mark_by(clk0, kClkChain);
     // 3. decisions x (D), and u = x F^(x)k into the trajectory rows
     for (int base = gwarp * 32; base < cw * 32; base += gsize) {
       const int e = base + lane;
@@ -1891,10 +2084,11 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
       if (e < P * n) {
         const int p = e >> ln, j = e & (n - 1);
         const int src = sm.nmap[p];
+        const unsigned fmp = sm.flipm[p];
         xb = L[src * n + j] < 0.f;
         if (spc && sm.poss[0][src] == j) xb ^= sm.bit[p];
         for (int r = 0; r < rounds; ++r)
-          if (sm.poss[r + first][src] == j) xb ^= sm.flipfin[r][p];
+          if (sm.poss[r + first][src] == j) xb ^= (fmp >> r) & 1u;
       }
       const unsigned w = __ballot_sync(kFull, xb);
       if (lane == 0) {
@@ -1911,7 +2105,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     if (n >= 32) {
       // across words: u_k = T(XOR of x_k' over the supersets k' of k)
       gsync();
-      clk_mark(kClkDecide);
+      clk_mark_by(clk0, kClkDecide);
       const int nw = n >> 5;
       for (int i = grank; i < P * nw; i += gsize) {
         const int p = i / nw, k = i - p * nw;
@@ -1923,12 +2117,13 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     }
   }
   __syncthreads();
-  clk_mark(prev_slot);
+  clk_mark_by(clk0, prev_slot);
 
   const size_t b = blockIdx.x;
   auto traj_at = [&](int t, int slot) {
     return (trajw[slot * R + (t >> 5)] >> (t & 31)) & 1u;
   };
+  auto ut_at = [&](int t) { return (utw[t >> 5] >> (t & 31)) & 1u; };
   if constexpr (OUT == kTrajectory) {
     uint8_t* tb = a.traj_bit + b * N * P;
     for (int i = tid; i < N * P; i += T) tb[i] = (uint8_t)traj_at(i / P, i % P);
@@ -1937,7 +2132,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     if (tid < P) a.pm[b * P + tid] = sm.pm[tid];
     if constexpr (SRC == kMonteCarlo) {
       int8_t* u = a.u_true + b * N;
-      for (int t = tid; t < N; t += T) u[t] = (int8_t)ut[t];
+      for (int t = tid; t < N; t += T) u[t] = (int8_t)ut_at(t);
     }
     return;
   }
@@ -1995,7 +2190,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     for (int t = tid; t < N; t += T) {
       const int k = a.pidx[t];
       if (k < 0 || k >= K) continue;
-      err += traj_at(t, sidx[a.qrow[t] * P + best]) != ut[t];
+      err += traj_at(t, sidx[a.qrow[t] * P + best]) != ut_at(t);
     }
     err = block_sum<T>(err, sm, lane, warp);
     if (tid == 0) {
@@ -2012,19 +2207,24 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     clk_end();                                                            \
   }
 
-#define FAST_KERNEL(NAME, SRC, OUT)                                        \
-  __global__ void __launch_bounds__(kFastThreads, 5) NAME(SclArgs a) {     \
-    clk_begin();                                                          \
-    fast_body<SRC, OUT, kFastThreads>(a);                                 \
-    clk_end();                                                            \
+#define FAST_KERNEL(NAME, T, SRC, OUT)                                           \
+  __global__ void __launch_bounds__(T, 65536 / kFastRegisters / (T)) NAME##_t##T( \
+      SclArgs a) {                                                              \
+    clk_begin();                                                                \
+    fast_body<SRC, OUT, T>(a);                                                  \
+    clk_end();                                                                  \
   }
+#define FAST_KERNELS(T)                                 \
+  FAST_KERNEL(scl_decode, T, kLlrIn, kSelect)           \
+  FAST_KERNEL(scl_decode_traj, T, kLlrIn, kTrajectory)  \
+  FAST_KERNEL(scl_mc_traj, T, kMonteCarlo, kTrajectory) \
+  FAST_KERNEL(scl_mc_counters, T, kMonteCarlo, kCounters)
 
-// Arikan, capacity 8: the redesigned body, min 5 blocks an SM (ca_scl's
-// ~42 KB of shared memory a block allows 5)
-FAST_KERNEL(scl_decode, kLlrIn, kSelect)
-FAST_KERNEL(scl_decode_traj, kLlrIn, kTrajectory)
-FAST_KERNEL(scl_mc_traj, kMonteCarlo, kTrajectory)
-FAST_KERNEL(scl_mc_counters, kMonteCarlo, kCounters)
+// Arikan, capacity 8: the redesigned body at 64 and 128 threads a
+// codeword (`fast_threads`), each at kFastRegisters a thread: 16 and 8
+// blocks an SM by the registers
+FAST_KERNELS(64)
+FAST_KERNELS(128)
 // capacity 8 with l > 2 kernels, and the subtree kernel (K3; it also
 // runs Arikan children): one instance a thread count of `general_threads`
 // (32 and 64 threads a codeword), each at kBig8Registers a thread
@@ -2067,7 +2267,8 @@ static bool arikan8(int kernel, int P, int big) {
 // 4 scl_subtree
 size_t scl_smem_bytes(int kernel, const SclArgs* a) {
   if (arikan8(kernel, a->P, a->big))
-    return (size_t)fast_layout(a->N, a->m, a->P, a->Q, kernel == 2 || kernel == 3)
+    return (size_t)fast_layout(a->N, a->m, a->P, a->Q, kernel == 2 || kernel == 3,
+                               a->view1 != 0)
         .total;
   const size_t N = a->N, P = a->P, Q = a->Q;
   return (P <= 8 ? (size_t)stage_copy_bytes(a->m) : 0) + (size_t)4 * a->n_lam
@@ -2100,16 +2301,40 @@ static int general_threads(int kernel, const SclArgs* a) {
   return 4 * blocks * 32 * kBig8Registers < quarters * regs ? 64 : 32;
 }
 
+// Threads a codeword of the Arikan capacity-8 body for `kernel` on *a: 128
+// while the registers (kFastRegisters a thread) cap the 128-thread blocks
+// an SM, 64 where its shared memory would hold more of them than its
+// registers allow (the device's own limits). 0 if the device cannot be
+// asked. ops/cuda_scl.py `fast_threads` models it with an H100's limits.
+static int fast_threads(int kernel, const SclArgs* a) {
+  int dev = 0, smem = 0, reserved = 0, regs = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
+             != cudaSuccess
+      || cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
+             != cudaSuccess
+      || cudaDeviceGetAttribute(&regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev)
+             != cudaSuccess)
+    return 0;
+  const size_t block = scl_smem_bytes(kernel, a) + sizeof(Fast) + reserved;
+  const int blocks = (int)(smem / block);
+  return blocks * 128 * kFastRegisters > regs ? 64 : 128;
+}
+
 // threads a block of the instance that runs `kernel` for *a
 int scl_block_threads(int kernel, const SclArgs* a) {
-  return arikan8(kernel, a->P, a->big) ? kFastThreads : general_threads(kernel, a);
+  return arikan8(kernel, a->P, a->big) ? fast_threads(kernel, a)
+                                       : general_threads(kernel, a);
 }
 
 // The instance that runs `kernel` for *a, after its shared-memory limit is
 // set; null if *a is out of range.
 static void (*instance(int kernel, const SclArgs* a, size_t smem))(SclArgs) {
-  static void (*const fast[4])(SclArgs) = {scl_decode, scl_decode_traj,
-                                           scl_mc_traj, scl_mc_counters};
+  // the Arikan capacity-8 body, [T / 128][kernel]
+  static void (*const fast[2][4])(SclArgs) = {
+      {scl_decode_t64, scl_decode_traj_t64, scl_mc_traj_t64, scl_mc_counters_t64},
+      {scl_decode_t128, scl_decode_traj_t128, scl_mc_traj_t128,
+       scl_mc_counters_t128}};
   // capacity 8, [T / 64][kernel]
   static void (*const big8[2][5])(SclArgs) = {
       {scl_decode_big_t32, scl_decode_traj_big_t32, scl_mc_traj_big_t32,
@@ -2128,8 +2353,11 @@ static void (*instance(int kernel, const SclArgs* a, size_t smem))(SclArgs) {
       || (a->P > 8 && maps > kMapsPerThread32 * kThreads))
     return nullptr;
   void (*fn)(SclArgs);
-  if (arikan8(kernel, a->P, a->big)) fn = fast[kernel];
-  else if (a->P > 8) fn = c32[kernel + (a->big ? 5 : 0)];
+  if (arikan8(kernel, a->P, a->big)) {
+    const int T = fast_threads(kernel, a);
+    if (T == 0) return nullptr;
+    fn = fast[T / 128][kernel];
+  } else if (a->P > 8) fn = c32[kernel + (a->big ? 5 : 0)];
   else {
     const int T = general_threads(kernel, a);
     if (T == 0) return nullptr;

@@ -16,8 +16,9 @@ per codeword):
 Each has instances for specs with l > 2 kernels (eBCH, mixed) and for list
 capacities 8 and 32, chosen at launch by a rule of the spec's shape:
 Arikan specs (2x2 kernels only) at P <= 8 go to the Arikan capacity-8 body
-(`arikan8`: 128 threads a codeword, decisions and trajectory bits packed
-in words, `fast_smem_bytes`), every other spec and the subtree kernel to
+(`arikan8`: 64 or 128 threads a codeword by `fast_threads`, decisions and
+trajectory bits packed in words, stage 1 read through the channel row,
+`fast_smem_bytes`), every other spec and the subtree kernel to
 the general body: at P <= 8 one warp a codeword, two where shared memory
 would hold too few one-warp blocks (`general_threads`; the stage tables
 copied to shared memory), at capacity 32 256 threads
@@ -67,7 +68,12 @@ _LEAF_FROZEN = 8
 C32_THREADS = 256         # the general body's threads a codeword at capacity 32
 _MAX_STAGES = 17
 # static shared memory of the Arikan capacity-8 body (`Fast` in the source)
-FAST_STATIC_BYTES = 1232
+FAST_STATIC_BYTES = 944
+# its registers a thread at the launch bounds (kFastRegisters), so warps an
+# SM, and its threads a codeword
+FAST_REGISTERS = 64
+FAST_WARPS = 65536 // FAST_REGISTERS // 32
+FAST_THREADS = (64, 128)
 # static shared memory of the general body's list capacities 8 and 32
 # (`Small<8>`, `Small<32>` with their fork tables `ForkTable<CAP>`)
 SMALL8_STATIC_BYTES = 1296
@@ -80,9 +86,10 @@ BIG8_WARPS = 65536 // BIG8_REGISTERS // 32
 SM_MAX_BLOCKS = 32
 SM_SHARED_BYTES = 228 * 1024
 RESERVED_PER_BLOCK = 1024     # shared memory the runtime keeps a block
+SMEM_UNIT = 128               # a block's shared memory is given in these units
 
-# `arikan8`, `general_threads`, `fast_smem_bytes`, `general_smem_bytes` and
-# the static sizes model the source's rules and layouts on the host (the
+# `arikan8`, `fast_threads`, `general_threads`, `fast_smem_bytes`,
+# `general_smem_bytes` and the static sizes model the source's rules and layouts on the host (the
 # launches take the library's own figures); tests/test_torch_cuda.py holds
 # them to the library.
 
@@ -108,21 +115,77 @@ def general_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
     return 64 if 4 * blocks < quarters * BIG8_WARPS else 32
 
 
+@functools.lru_cache(maxsize=1024)
+def stage1_view(spec: CodeSpec, list_size: int) -> bool:
+    """Whether the Arikan capacity-8 body reads stage 1 through the channel
+    row instead of storing it (SclArgs.view1): at least two stages, and no
+    node op (R0, REP, R1, SPC, LEAF) at depth 1 of the op program, so only
+    the stage-2 DOWN ops read stage 1."""
+    program = build_program(spec, scl=(int(list_size) > 1))
+    return len(spec.factors) >= 2 and all(
+        op.level != 1 for op in program.ops
+        if op.kind not in ("DOWN_FRESH", "DOWN_DYN", "UP"))
+
+
+@functools.lru_cache(maxsize=1024)
 def fast_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
     """Dynamic shared memory of the Arikan capacity-8 body (the source's
-    `fast_layout`): LLR buffers P*(N-1) f32, the channel LLRs N f32
-    (Monte-Carlo kernels), decision words (two children of ceil(P*n_s/32)
-    words a stage), trajectory rows (P rows of ceil(N/32) words), 8-byte
-    path maps (3 a stage, 8-aligned), span perms and suffix indices (Q*P
-    bytes each), u_true N bytes (Monte-Carlo kernels)."""
+    `fast_layout`): LLR buffers P*(N-1) f32, or P*(N/2 - 1) under
+    `stage1_view` (at least 2N bytes in the Monte-Carlo kernels: the
+    prologue's scratch), the channel LLRs N f32 (Monte-Carlo kernels),
+    decision words (two children of ceil(P*n_s/32) words a stage),
+    trajectory rows (P rows of ceil(N/32) words), 8-byte path maps (3 a
+    stage, 8-aligned), span perms and suffix indices (Q*P bytes each, then
+    4-aligned), u_true as ceil(N/32) words (Monte-Carlo kernels)."""
     N, P, m = spec.N, int(list_size), len(spec.factors)
     mc = kernel in ("scl_mc_traj", "scl_mc_counters")
     Q = len(trajectory_spans(spec, P))
-    off = 4 * P * (N - 1) + (4 * N if mc else 0)
+    off = 4 * P * ((N >> 1 if stage1_view(spec, P) else N) - 1)
+    if mc:
+        off = max(off, 2 * N) + 4 * N
     off += sum(8 * -(-P * (N >> s) // 32) for s in range(1, m + 1))
     off += 4 * P * -(-N // 32)
     off = -(-off // 8) * 8
-    return off + 24 * m + 2 * Q * P + (N if mc else 0)
+    off = -(-(off + 24 * m + 2 * Q * P) // 4) * 4
+    return off + (4 * -(-N // 32) if mc else 0)
+
+
+def _fast_block_smem(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Shared memory a block of the Arikan capacity-8 body takes of its SM:
+    dynamic, static and what the runtime keeps a block."""
+    return (fast_smem_bytes(spec, list_size, kernel) + FAST_STATIC_BYTES
+            + RESERVED_PER_BLOCK)
+
+
+def fast_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Threads a codeword of the Arikan capacity-8 body on an H100 (the
+    source's `fast_threads`): 128 while the registers (FAST_REGISTERS a
+    thread) cap the 128-thread blocks an SM, 64 where its shared memory
+    would hold more of them than the registers allow."""
+    blocks = SM_SHARED_BYTES // _fast_block_smem(spec, list_size, kernel)
+    return 64 if blocks * 128 * FAST_REGISTERS > 65536 else 128
+
+
+def fast_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Blocks of the Arikan capacity-8 instance for (spec, list_size,
+    kernel) an H100 SM holds, by its layout: the least of the SM's 32
+    blocks, its registers at the launch bounds and its shared memory, which
+    a block is given in units of SMEM_UNIT bytes."""
+    T = fast_threads(spec, list_size, kernel)
+    smem = fast_smem_bytes(spec, list_size, kernel) + FAST_STATIC_BYTES
+    block = -(-smem // SMEM_UNIT) * SMEM_UNIT + RESERVED_PER_BLOCK
+    return min(SM_MAX_BLOCKS, FAST_WARPS * 32 // T, SM_SHARED_BYTES // block)
+
+
+def leader_warp(slots, warps: int) -> int:
+    """The warp of an Arikan capacity-8 block that runs its leader's part
+    (the source's `leader_warp`), from the warp slots its `warps` warps got
+    (`slots[w]`; slot s issues from sub-partition s % 4): the one on
+    sub-partition (s0 + ((s0 >> 2) & (warps - 1))) % 4, s0 the least slot,
+    else warp 0."""
+    s0 = min(slots[:warps])
+    want = (s0 + ((s0 >> 2) & (warps - 1))) & 3
+    return next((w for w in range(warps) if slots[w] & 3 == want), 0)
 
 
 def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
@@ -196,7 +259,7 @@ class SclArgs(ctypes.Structure):
         + [("sigma", ctypes.c_float)]
         + [(name, ctypes.c_int) for name in (
             "n_ops", "N", "m", "P", "Q", "K", "W", "B", "n_lam", "n_dec",
-            "n_maps", "big")])
+            "n_maps", "big", "view1")])
 
 
 _POINTERS = {name for name, kind in SclArgs._fields_ if kind is ctypes.c_void_p}
@@ -318,8 +381,10 @@ def build_tables(spec: CodeSpec, list_size: int) -> dict:
          CRC);
     gmask [K] int32: CRC generator row k as a bit mask over CRC bits;
     st   [m + 1] StageTab bytes (`stage_tables`), uint8;
-    offmask, Q, K, W, n_lam, n_dec, n_maps, big: CRC offset mask, span
-    count, info bits, CRC width, buffer sizes, whether a kernel is l > 2.
+    offmask, Q, K, W, n_lam, n_dec, n_maps, big, view1: CRC offset mask,
+    span count, info bits, CRC width, buffer sizes, whether a kernel is
+    l > 2, and whether the Arikan capacity-8 body reads stage 1 through
+    the channel row (`stage1_view`).
     """
     check_supported(spec, list_size)
     P = int(list_size)
@@ -359,7 +424,8 @@ def build_tables(spec: CodeSpec, list_size: int) -> dict:
             "st": np.frombuffer(bytes(tabs), np.uint8).copy(),
             "offmask": offmask, "Q": q, "K": spec.K, "W": W,
             "n_lam": n_lam, "n_dec": n_dec, "n_maps": n_maps,
-            "big": int(any(f > 2 for f in spec.factors))}
+            "big": int(any(f > 2 for f in spec.factors)),
+            "view1": int(stage1_view(spec, P))}
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -402,7 +468,7 @@ class SclKernels:
                        m=len(self.spec.factors), P=self.P, Q=t["Q"], K=t["K"],
                        W=t["W"], B=int(batch), n_lam=t["n_lam"],
                        n_dec=t["n_dec"], n_maps=t["n_maps"], big=t["big"],
-                       **fields)
+                       view1=t["view1"], **fields)
 
     def smem_bytes(self, name: str, device: torch.device,
                    args: SclArgs | None = None) -> tuple[int, int]:

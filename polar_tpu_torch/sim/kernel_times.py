@@ -7,7 +7,8 @@
 
 Rows (one JSON line each, with the card's name and power limit):
 `ca_scl` (L=8): K1 (`scl_decode`) on channel LLRs at 2.0 dB and K5
-(`scl_mc_counters`, the whole Monte-Carlo step); `arikan_sc` (L=1): K2
+(`scl_mc_counters`, the whole Monte-Carlo step), then K2 and K4 (the
+full-mode step) at L=8; `arikan_sc` (L=1): K2
 (`scl_decode_traj`); `bch_sc` (L=1): K2, K4 (`scl_mc_traj`) and K5, and
 K1 at L=8; `golden_mixed` (the spec of results/golden_mixed_scl_b128.npz,
 N=512, (16,2,2,2,2,2): the one spec whose layout can take the general
@@ -35,8 +36,23 @@ DOWN ops have slots of their own (the last input, the syndrome trellis,
 the tail table). It also prints the R1/SPC fork rounds a block ran and
 the chain's cycles a round: the rounds follow from the op program alone
 (`fork_rounds`), and a clock build that counts them (its `R1/SPC rounds`
-slot) must agree. `--only` picks the runs (`ca_scl`, `bch_sc`, `L32`,
+slot) must agree. Beside each decode kernel's split: the threads a block
+and the blocks an SM (the occupancy API) of the instance that ran, and
+its registers and spilled bytes from ptxas's report of the main build
+(`ptxas_report`). `--only` picks the runs (`ca_scl`, `bch_sc`, `L32`,
 `mixed_scl32`).
+
+`--slots` runs csrc/warp_slots.cu, a probe that records the SM and warp
+slot of every warp of a launch that fills the SMs with blocks of the
+Arikan capacity-8 body's shapes at ca_scl (K5: 128 threads, 8 blocks an
+SM; K1: 64 threads, 10), and prints the slots of the blocks on a few SMs
+and how the leader-warp rule (`cuda_scl.leader_warp`) spreads the leaders
+over the four sub-partitions, beside warp 0.
+
+`--sass-against DIR` prints which kernel instances of csrc/scl_decode.cu
+compile to the same SASS here and in the checkout DIR (cuobjdump of each
+checkout's built library, whitespace and the anonymous namespace's hash
+left out): instances whose source did not change should all be equal.
 
 `trace_summary` reads a torch.profiler Chrome trace (sim/sweep_cli.py
 `--profile`): the device's busy and idle share of the traced window, the
@@ -48,6 +64,8 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 
 import numpy as np
@@ -135,6 +153,54 @@ def fork_rounds(spec: CodeSpec, P: int) -> int:
                if op.kind in ("R1", "SPC"))
 
 
+def _instance(mangled: str) -> str:
+    """A kernel's own name from its mangled one (_ZN <namespace> <name> E)."""
+    ns = re.match(r"_ZN(\d+)", mangled)
+    if not ns:
+        return mangled
+    rest = mangled[ns.end() + int(ns.group(1)):]
+    k = re.match(r"\d+", rest)
+    return rest[k.end():k.end() + int(k.group())]
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel instance: {"registers", "spill_bytes"}} from nvcc's
+    `-Xptxas -v` report (spill_bytes counts the stores)."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = _instance(m.group(1))
+            out[entry] = {"registers": None, "spill_bytes": 0}
+        elif entry is not None:
+            r = re.search(r"Used (\d+) registers", line)
+            if r:
+                out[entry]["registers"] = int(r.group(1))
+            s = re.search(r"(\d+) bytes spill stores", line)
+            if s:
+                out[entry]["spill_bytes"] = int(s.group(1))
+    return out
+
+
+def instance_name(spec: CodeSpec, P: int, kernel: str) -> str:
+    """The library's instance that runs `kernel` for (spec, P): the Arikan
+    capacity-8 body's with `_t64` / `_t128` by its threads (the kernel's own
+    name in checkouts before that body's second redesign); the general
+    body's with `_big` (l > 2 kernels or the subtree kernel), then `_t32` /
+    `_t64` by its threads at capacity 8 or `_c32` at capacity 32."""
+    from polar_tpu_torch.ops import cuda_scl
+
+    if cuda_scl.arikan8(spec, P, kernel):
+        # by threads a codeword since the body's second redesign
+        threads = getattr(cuda_scl, "fast_threads", None)
+        return f"{kernel}_t{threads(spec, P, kernel)}" if threads else kernel
+    big = any(f > 2 for f in spec.factors)
+    base = kernel + ("_big" if big and kernel != "scl_subtree" else "")
+    if P > 8:
+        return base + "_c32"
+    return f"{base}_t{cuda_scl.general_threads(spec, P, kernel)}"
+
+
 def _mixed_capture(dev, B: int):
     """(calls, outer, decode): the (core, lam1, pm) of the 13 K3 launches
     of one mixed_scl32 decode of B codewords through the K3 route, the (i,
@@ -209,7 +275,7 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
     bch_sc (L=1) and K1 at bch_sc L=8 (B codewords), of K1 at L=32 on the
     `L32` specs (B codewords) and of K3 on the 13 children of one
     mixed_scl32 decode (B=256), through the clock build."""
-    from polar_tpu_torch.ops import cuda_scl
+    from polar_tpu_torch.ops import cuda_build, cuda_scl
 
     # older checkouts' clock builds have no round count
     rounds_slot = getattr(cuda_scl, "ROUNDS_SLOT", None)
@@ -224,9 +290,10 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
         sigma = float(ebn0_to_sigma(2.0, spec.rate))
         rounds = (fork_rounds(spec, L), 1)
         runs += [("ca_scl", "scl_mc_counters", B,
-                  lambda st=step, sg=sigma: st.counts((11, 12), sg, B), rounds),
+                  lambda st=step, sg=sigma: st.counts((11, 12), sg, B), rounds,
+                  (spec, L)),
                  ("ca_scl", "scl_decode", B, lambda d=dec, x=llr: d.kernel(x),
-                  rounds)]
+                  rounds, (spec, L))]
     if "bch_sc" in only:
         spec = get_preset("bch_sc").spec
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -236,9 +303,9 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
         sigma = float(ebn0_to_sigma(2.0, spec.rate))
         runs += [("bch_sc", "scl_mc_counters", B,
                   lambda st=step, sg=sigma: st.counts((11, 12), sg, B),
-                  (fork_rounds(spec, 1), 1)),
+                  (fork_rounds(spec, 1), 1), (spec, 1)),
                  ("bch_sc L=8", "scl_decode", B, lambda d=dec, x=llr: d.kernel(x),
-                  (fork_rounds(spec, 8), 1))]
+                  (fork_rounds(spec, 8), 1), (spec, 8))]
     if "L32" in only:
         gen = torch.Generator(device=dev).manual_seed(7)
         crc8 = CrcSpec(8, 0x07, 0)
@@ -247,14 +314,17 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
             runs.append((name, "scl_decode", B,
                          lambda d=SclDecoder(spec, 32, dev, select=True),
                          x=_channel(spec, B, gen, dev): d.kernel(x),
-                         (fork_rounds(spec, 32), 1)))
+                         (fork_rounds(spec, 32), 1), (spec, 32)))
     if "mixed_scl32" in only:
         Bm = get_preset("mixed_scl32").batch
         calls, _, _ = _mixed_capture(dev, Bm)
         rounds = (sum(fork_rounds(c.spec, c.P) for c, _, _ in calls), len(calls))
         runs.append(("mixed_scl32", f"scl_subtree x{len(calls)}", Bm,
-                     lambda: [c.kernel(l1, pm) for c, l1, pm in calls], rounds))
-    for preset, k, batch, fn, (rounds, launches) in runs:
+                     lambda: [c.kernel(l1, pm) for c, l1, pm in calls], rounds,
+                     None))
+    cuda_scl.load_library()        # the main build: its ptxas report
+    ptxas = ptxas_report(cuda_build.build_info.get("scl_decode.cu", {}).get("ptxas", ""))
+    for preset, k, batch, fn, (rounds, launches), shape in runs:
         fn()                       # the tables, outside the clock
         with cuda_scl.clock_build() as lib:
             fn()
@@ -268,8 +338,17 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
                                f"{rounds * blocks / launches}")
         total = sum(clk.values())
         per_block = rounds / launches
+        occupancy = {}
+        if shape is not None:
+            kern = cuda_scl.SclKernels(*shape)
+            inst = instance_name(*shape, k)
+            occupancy = dict({"instance": inst,
+                              "threads": kern.block_threads(k, dev),
+                              "blocks_per_sm": kern.blocks_per_sm(k, dev),
+                              "smem_bytes": kern.smem_bytes(k, dev)},
+                             **ptxas.get(inst, {}))
         print(json.dumps({
-            "preset": preset, "kernel": k, "batch": batch,
+            "preset": preset, "kernel": k, "batch": batch, **occupancy,
             "blocks_measured": blocks,
             "cycles_per_block": total / blocks,
             "fork_rounds_per_block": per_block,
@@ -279,6 +358,76 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
             "split": {s: {"cycles_per_block": c / blocks, "share": c / total}
                       for s, c in clk.items() if c},
             "card": card}), flush=True)
+
+
+def slots(dev, card: str, spin: int = 2_000_000) -> None:
+    """Warp slots of blocks resident together (csrc/warp_slots.cu), at the
+    Arikan capacity-8 body's ca_scl shapes; the leader rule's sub-partitions."""
+    import collections
+    import ctypes
+
+    from polar_tpu_torch.ops import cuda_build, cuda_scl
+
+    lib = ctypes.CDLL(str(cuda_build.build("warp_slots.cu")))
+    lib.warp_slots_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_longlong]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spec = get_preset("ca_scl").spec
+    for kernel in ("scl_mc_counters", "scl_decode"):
+        T = cuda_scl.fast_threads(spec, 8, kernel)
+        per_sm = cuda_scl.fast_blocks_per_sm(spec, 8, kernel)
+        smem = cuda_scl.fast_smem_bytes(spec, 8, kernel) + cuda_scl.FAST_STATIC_BYTES
+        W, B = T // 32, sms * per_sm
+        out = torch.zeros(B * W * 2, dtype=torch.int32, device=dev)
+        if lib.warp_slots_launch(out.data_ptr(), B, T, smem, spin) != 0:
+            raise RuntimeError("warp_slots launch failed")
+        o = out.view(B, W, 2).cpu().tolist()
+        lead = collections.Counter(o[b][cuda_scl.leader_warp([w[1] for w in o[b]], W)][1] & 3
+                                   for b in range(B))
+        warp0 = collections.Counter(o[b][0][1] & 3 for b in range(B))
+        print(json.dumps({
+            "kernel": kernel, "threads": T, "blocks_per_sm": per_sm, "blocks": B,
+            "slots_on_sm": {sm: [[w[1] for w in o[b]] for b in range(B) if o[b][0][0] == sm]
+                            for sm in (0, 1)},
+            "warp0_subpartitions": dict(sorted(warp0.items())),
+            "leader_subpartitions": dict(sorted(lead.items())),
+            "card": card}), flush=True)
+
+
+def sass_functions(library) -> dict:
+    """{instance: its SASS lines} of a built library (cuobjdump -sass;
+    whitespace and the anonymous namespace's hash left out)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = _instance(m.group(1))
+            out[cur] = []
+        elif cur is not None:
+            out[cur].append(" ".join(re.sub(r"_GLOBAL__N__\w+?_", "_NS_", line).split()))
+    return out
+
+
+def sass_against(other: str) -> None:
+    """Instances of scl_decode.cu with equal SASS here and in checkout
+    `other` (each built there with its own sources)."""
+    from polar_tpu_torch.ops import cuda_build
+
+    here = sass_functions(cuda_build.build("scl_decode.cu"))
+    lib = subprocess.run(
+        ["python", "-c", "from polar_tpu_torch.ops import cuda_build; "
+         "print(cuda_build.build('scl_decode.cu'))"],
+        cwd=other, capture_output=True, text=True, check=True).stdout.strip()
+    there = sass_functions(lib)
+    both = sorted(set(here) & set(there))
+    print(json.dumps({
+        "identical": [k for k in both if here[k] == there[k]],
+        "differ": [k for k in both if here[k] != there[k]],
+        "only_here": sorted(set(here) - set(there)),
+        "only_there": sorted(set(there) - set(here))}), flush=True)
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -347,6 +496,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--split", action="store_true",
                     help="the op-kind clock of K5 and K1 at ca_scl and bch_sc, "
                          "of K1 at L=32 and of K3 at mixed_scl32 instead")
+    ap.add_argument("--slots", action="store_true",
+                    help="the warp slots of the Arikan body's blocks and the "
+                         "leader rule's sub-partitions instead")
+    ap.add_argument("--sass-against", metavar="DIR", default=None,
+                    help="compare scl_decode.cu's SASS with checkout DIR's instead")
     args = ap.parse_args(argv)
     known = SPLIT_RUNS if args.split else ROWS
     args.only = args.only or ",".join(known)
@@ -366,6 +520,12 @@ def main(argv=None) -> None:
                           text=True).stdout.strip().splitlines()[0]
     B = args.batch
     only = args.only.split(",")
+    if args.slots:
+        slots(dev, card)
+        return
+    if args.sass_against:
+        sass_against(args.sass_against)
+        return
     if args.split:
         split(B, dev, card, only)
         return
@@ -373,7 +533,8 @@ def main(argv=None) -> None:
     crc8 = CrcSpec(8, 0x07, 0)
     groups = {
         "ca_scl": lambda: _decode_rows("ca_scl", get_preset("ca_scl").spec, 8,
-                                       ("scl_decode", "scl_mc_counters"), B, gen, dev),
+                                       ("scl_decode", "scl_mc_counters",
+                                        "scl_decode_traj", "scl_mc_traj"), B, gen, dev),
         "arikan_sc": lambda: _decode_rows("arikan_sc", get_preset("arikan_sc").spec,
                                           1, ("scl_decode_traj",), B, gen, dev),
         "bch_sc": lambda: (

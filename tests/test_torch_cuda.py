@@ -527,8 +527,9 @@ def test_big8_shared_memory_mirror(cuda):
 
 def test_clock_build_counts_fork_rounds(cuda):
     """The op-kind clock's round count equals the op program's
-    (`kernel_times.fork_rounds`) on capacity-32 decodes, an Arikan
-    capacity-8 decode and bch_sc at L=8 (the general body's capacity 8)."""
+    (`kernel_times.fork_rounds`) on capacity-32 decodes, Arikan capacity-8
+    decodes (ca_scl's K1 and K5 among them) and bch_sc at L=8 (the general
+    body's capacity 8)."""
     from polar_tpu_torch.models.presets import bch_sc
     from polar_tpu_torch.sim.kernel_times import fork_rounds
     dec = cuda_scl.SclDecoder(bch_sc().spec, 8, cuda, select=True)
@@ -549,6 +550,18 @@ def test_clock_build_counts_fork_rounds(cuda):
             clk = cuda_scl.read_clock(lib)
         assert clk["blocks"] == 64
         assert clk[cuda_scl.ROUNDS_SLOT] == 64 * fork_rounds(spec, L), (factors, L)
+    from polar_tpu_torch.ops.mc import build_mc_step
+    spec = ca_scl().spec
+    dec = cuda_scl.SclDecoder(spec, 8, cuda, select=True)
+    step = build_mc_step(spec, 8, device=cuda, counters=True)
+    x = torch.randn((64, spec.N), device=cuda)
+    for fn in (lambda: dec.kernel(x), lambda: step.counts((3, 4), 0.8, 64)):
+        fn()
+        with cuda_scl.clock_build() as lib:
+            fn()
+            clk = cuda_scl.read_clock(lib)
+        assert clk["blocks"] == 64
+        assert clk[cuda_scl.ROUNDS_SLOT] == 64 * fork_rounds(spec, 8) == 64 * 220
 
 
 def test_golden_mixed_replay_on_card(cuda):
@@ -684,65 +697,87 @@ def _all_four(spec, L, cuda, llr, noise, sigma):
                        step.plain_counts((5, 6), sigma, B, noise))
 
 
-@pytest.mark.parametrize("L", [3, 5, 7, 8])
-@pytest.mark.parametrize("N,K,crc", [(64, 28, CrcSpec(8, 0x07, 0)),
-                                     (2048, 1000, CrcSpec(16, 0x1021, 0))])
-def test_arikan8_kernels_on_integer_llrs(cuda, N, K, crc, L):
+# the Arikan specs of the body's tests: two small codes and ca_scl (N=1024)
+# at the main path's batch
+_ARIKAN8 = [(64, 28, CrcSpec(8, 0x07, 0), 1024),
+            (2048, 1000, CrcSpec(16, 0x1021, 0), 1024),
+            (1024, None, None, 8192)]
+
+
+def _arikan8_spec(N, K, crc):
+    return ca_scl().spec if K is None else _spec(N, K, crc)
+
+
+@pytest.mark.parametrize("L", range(1, 9))
+@pytest.mark.parametrize("N,K,crc,B", _ARIKAN8)
+def test_arikan8_kernels_on_integer_llrs(cuda, N, K, crc, B, L):
     """Integer LLRs and integer noise (sigma = 1): dense ties in metrics and
-    in the least-reliable positions, at odd P and at P = 8; N = 2048 has
-    33 path maps, more than the warp's 32 lanes."""
+    in the least-reliable positions, at every P = 1..8; N = 2048 has 33
+    path maps, more than the warp's 32 lanes; ca_scl at B=8192."""
     rng = np.random.default_rng(7 * N + L)
-    llr = torch.as_tensor(np.round(2.0 * rng.standard_normal((1024, N))),
+    llr = torch.as_tensor(np.round(2.0 * rng.standard_normal((B, N))),
                           dtype=torch.float32, device=cuda)
-    noise = torch.as_tensor(np.round(1.5 * rng.standard_normal((1024, N))),
+    noise = torch.as_tensor(np.round(1.5 * rng.standard_normal((B, N))),
                             dtype=torch.float32, device=cuda)
-    _all_four(_spec(N, K, crc), L, cuda, llr, noise, 1.0)
+    _all_four(_arikan8_spec(N, K, crc), L, cuda, llr, noise, 1.0)
 
 
-def test_arikan8_kernels_on_ca_scl_at_0db(cuda):
-    """ca_scl with noise at 0 dB: many R1/SPC flips and diverged paths."""
+@pytest.mark.parametrize("L", range(1, 9))
+def test_arikan8_kernels_on_ca_scl_at_0db(cuda, L):
+    """ca_scl with noise at 0 dB, B=8192: many R1/SPC flips and diverged
+    paths."""
     from polar_tpu_torch.ops.mc import mc_draw
     from polar_tpu_torch.sim.channel import ebn0_to_sigma
     spec = ca_scl().spec
     sigma = float(ebn0_to_sigma(0.0, spec.rate))
-    gen = torch.Generator(device=cuda).manual_seed(50)
-    noise = torch.randn((2048, spec.N), generator=gen, device=cuda)
-    _, llr = mc_draw(spec, (9, 10), sigma, 2048, cuda, noise)
-    _all_four(spec, 8, cuda, llr, noise, sigma)
+    gen = torch.Generator(device=cuda).manual_seed(50 + L)
+    noise = torch.randn((8192, spec.N), generator=gen, device=cuda)
+    _, llr = mc_draw(spec, (9, 10), sigma, 8192, cuda, noise)
+    _all_four(spec, L, cuda, llr, noise, sigma)
 
 
-@pytest.mark.parametrize("L", [1, 4, 8])
-def test_arikan8_kernels_on_huge_magnitudes(cuda, L):
+@pytest.mark.parametrize("L", range(1, 9))
+@pytest.mark.parametrize("N,K,crc,B", [(128, 56, CrcSpec(16, 0x1021, 0), 1024),
+                                       (1024, None, None, 8192)])
+def test_arikan8_kernels_on_huge_magnitudes(cuda, N, K, crc, B, L):
     """LLRs at +-1e30, above it and one +-inf a codeword (no inf - inf in
-    a g step): the selection's rule at 1e30 equals extract_mins' rounds."""
-    spec = _spec(128, 56, CrcSpec(16, 0x1021, 0))
+    a g step): the selection's rule at 1e30 equals extract_mins' rounds,
+    also where the n = 64 and 128 nodes of ca_scl select by extraction."""
     rng = np.random.default_rng(30 + L)
-    x = 3.0 * rng.standard_normal((1024, 128))
+    x = 3.0 * rng.standard_normal((B, N))
     pick = rng.random(x.shape)
     x = np.where(pick < 0.3, np.sign(x) * 1e30, x)
     x = np.where((pick > 0.3) & (pick < 0.35), np.sign(x) * 4e30, x)
-    x[np.arange(1024), rng.integers(0, 128, 1024)] = np.inf * np.sign(rng.standard_normal(1024))
+    x[np.arange(B), rng.integers(0, N, B)] = np.inf * np.sign(rng.standard_normal(B))
     llr = torch.as_tensor(x, dtype=torch.float32, device=cuda)
     noise = torch.as_tensor(np.where(pick < 0.3, 1e32, rng.standard_normal(x.shape)),
                             dtype=torch.float32, device=cuda)
-    _all_four(spec, L, cuda, llr, noise, 0.8)
+    _all_four(_arikan8_spec(N, K, crc), L, cuda, llr, noise, 0.8)
 
 
 def test_arikan8_shared_memory_mirror(cuda):
-    """The library's shared memory of the Arikan capacity-8 instances ==
-    the Python mirror (`fast_smem_bytes`, FAST_STATIC_BYTES); ca_scl's
-    K5 fits 5 blocks an SM, and the card holds 5."""
-    for N, L in ((16, 1), (64, 3), (1024, 8), (4096, 5)):
+    """The library's threads, shared memory and blocks an SM of the Arikan
+    capacity-8 instances == the Python mirror (`fast_threads`,
+    `fast_smem_bytes`, FAST_STATIC_BYTES, `fast_blocks_per_sm`) at N = 16
+    .. 4096 for L = 1..8, the card holding at least the blocks the layout
+    allows; ca_scl's K5 fits 8 blocks of 128 threads an SM and K1 10 of
+    64, and the card holds exactly those."""
+    for N in (16, 64, 1024, 2048, 4096):
         spec = ca_scl().spec if N == 1024 else _spec(N, N // 2, None)
-        k = cuda_scl.SclKernels(spec, L)
-        for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj", "scl_mc_counters"):
-            dyn, static = k.smem_bytes(name, cuda)
-            assert dyn == cuda_scl.fast_smem_bytes(spec, L, name), (N, L, name)
-            assert static == cuda_scl.FAST_STATIC_BYTES
+        for L in range(1, 9):
+            k = cuda_scl.SclKernels(spec, L)
+            for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj", "scl_mc_counters"):
+                dyn, static = k.smem_bytes(name, cuda)
+                assert dyn == cuda_scl.fast_smem_bytes(spec, L, name), (N, L, name)
+                assert static == cuda_scl.FAST_STATIC_BYTES
+                assert k.block_threads(name, cuda) == cuda_scl.fast_threads(spec, L, name)
+                assert (k.blocks_per_sm(name, cuda)
+                        >= cuda_scl.fast_blocks_per_sm(spec, L, name)), (N, L, name)
     k = cuda_scl.SclKernels(ca_scl().spec, 8)
-    dyn, static = k.smem_bytes("scl_mc_counters", cuda)
-    assert 5 * (dyn + static + 1024) <= 228 * 1024
-    assert k.blocks_per_sm("scl_mc_counters", cuda) == 5
+    assert k.block_threads("scl_mc_counters", cuda) == 128
+    assert k.blocks_per_sm("scl_mc_counters", cuda) == 8
+    assert k.block_threads("scl_decode", cuda) == 64
+    assert k.blocks_per_sm("scl_decode", cuda) == 10
 
 
 # ~50 ms of torch.cuda._sleep at an H100's SM clock (up to 1.98 GHz)

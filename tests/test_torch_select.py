@@ -1,8 +1,9 @@
 """The capacity-8 fork and selection (csrc/scl_decode.cu `fork_rank` and
-the one-pass R1/SPC rank, in the Arikan capacity-8 body and in the general
-body at L <= 8), as plain PyTorch models, against the plain decoder's
-`fork2` and `extract_mins` (ops/scl.py) at every list size 1..8; and the
-Python mirror of the Arikan body's shared-memory layout.
+the one-pass R1/SPC rank of the general body at L <= 8, whose results the
+Arikan capacity-8 body's register fork and selection equal:
+tests/test_torch_arikan8.py), as plain PyTorch models, against the plain
+decoder's `fork2` and `extract_mins` (ops/scl.py) at every list size 1..8;
+and the Python mirror of the Arikan body's shared-memory layout.
 
 The kernel itself runs on the card (tests/test_torch_cuda.py); these
 models state its algorithm: a fork ranks each of the 2P candidates by
@@ -141,13 +142,15 @@ def test_rank_select_repeats_a_big_position():
 
 def test_fast_layout_fits_five_blocks_at_ca_scl():
     """K5 (and K1) at ca_scl: 5 x (dynamic + static + reserved) fits an
-    SM's 228 KB, where the general body's ~64 KB allowed 3."""
+    SM's 228 KB, where the general body's ~64 KB allowed 3; K5's dynamic
+    shared memory is 25,176 B since stage 1 is read through the channel row
+    (42,456 B before; tests/test_torch_arikan8.py holds the layout)."""
     spec = presets.ca_scl().spec
     assert cuda_scl.arikan8(spec, 8, "scl_mc_counters")
     for kernel in ("scl_mc_counters", "scl_decode", "scl_mc_traj", "scl_decode_traj"):
         dyn = cuda_scl.fast_smem_bytes(spec, 8, kernel)
         assert 5 * (dyn + cuda_scl.FAST_STATIC_BYTES + RESERVED_PER_BLOCK) <= SMEM_PER_SM
-    assert cuda_scl.fast_smem_bytes(spec, 8, "scl_mc_counters") == 42456
+    assert cuda_scl.fast_smem_bytes(spec, 8, "scl_mc_counters") == 25176
 
 
 @pytest.mark.parametrize("N", [16, 32, 64, 1024])
