@@ -305,7 +305,8 @@ ARIKAN_PARENT_MS = {("scl_decode", "ca_scl"): 5.8631,
                     ("scl_mc_traj", "ca_scl"): 6.1785,
                     ("scl_mc_counters", "ca_scl"): 5.8185,
                     ("scl_decode_traj", "arikan_sc"): 1.6348}
-# the flagship bench's line before it (PERF.md, PR 12's final chip run)
+# the flagship bench's line before it (PERF.md: phase 28 of this script on
+# an NVIDIA H100 80GB HBM3, 700 W)
 FLAGSHIP_PARENT = 1_396_876
 
 

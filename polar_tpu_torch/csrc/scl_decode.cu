@@ -1485,6 +1485,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 //   mask (no perms/flips record to walk back). Shuffles sit outside every
 //   branch and the compares are bitwise: nvcc wraps a shuffle behind a
 //   branch, and a short-circuit && / ||, in a reconvergence barrier.
+// - DOWN takes four pairs a step (16-byte reads and writes, four decision
+//   bits from one word) where n is a multiple of 4.
 // - Nodes of n >= 64 select by extraction: a warp a path, n_min rounds of
 //   a warp minimum by (|v|, j), each input a lane's (n / 32 a lane).
 // Every decision and metric stays the first redesign's, bit for bit.
@@ -1611,6 +1613,27 @@ __device__ __forceinline__ unsigned arikan_word(unsigned w, int n) {
   if (n > 8) w ^= (w >> 8) & 0x00ff00ffu;
   if (n > 16) w ^= (w >> 16) & 0x0000ffffu;
   return w;
+}
+
+// Four floats from p: one 16-byte read where p is 16-byte aligned.
+__device__ __forceinline__ float4 load4(const float* p, bool aligned) {
+  if (aligned) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// The f (DOWN_FRESH) or g (DOWN_DYN, bit d) step of one pair.
+__device__ __forceinline__ float fg_step(bool dyn, float va, float vb, unsigned d) {
+  if (!dyn) {
+    const float sg = ((va < 0.f) != (vb < 0.f)) ? -1.f : 1.f;
+    return sg * fminf(fabsf(va), fabsf(vb));
+  }
+  return va * (1.f - 2.f * (float)d) + vb;
+}
+
+// The same for four pairs, bit k of dw the g step's bit of pair k.
+__device__ __forceinline__ float4 fg_step4(bool dyn, float4 a, float4 b, unsigned dw) {
+  return make_float4(fg_step(dyn, a.x, b.x, dw & 1u), fg_step(dyn, a.y, b.y, (dw >> 1) & 1u),
+                     fg_step(dyn, a.z, b.z, (dw >> 2) & 1u), fg_step(dyn, a.w, b.w, (dw >> 3) & 1u));
 }
 
 // 2P -> P fork in registers, one warp, all 32 lanes (P <= 8): lane p < P
@@ -1805,38 +1828,60 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
         // stage 1's row of path p at j1 < n1, from the channel row
         const unsigned* d1 = dec_at(1, 0);
         const unsigned char* r1 = map_at(1);
-        auto stage1 = [&](int p, int j1) {
-          const float xa = x[j1], xb = x[j1 + n1];
-          if (!dyn1) {
-            const float sg = ((xa < 0.f) != (xb < 0.f)) ? -1.f : 1.f;
-            return sg * fminf(fabsf(xa), fabsf(xb));
+        const bool dyn = kind == DOWN_DYN;
+        if ((n & 3) == 0) {
+          // four pairs a step: 16-byte reads and writes, four decision
+          // bits from one word (rows and offsets are multiples of 4)
+          const bool xal = (reinterpret_cast<size_t>(x) & 15) == 0;
+          auto stage1x4 = [&](int p, int j1) {
+            unsigned dw = 0u;
+            if (dyn1) {
+              const int i = r1[p] * n1 + j1;
+              dw = d1[i >> 5] >> (i & 31);
+            }
+            return fg_step4(dyn1, load4(x + j1, xal), load4(x + j1 + n1, xal), dw);
+          };
+          for (int q4 = grank; q4 < (P * n) >> 2; q4 += gsize) {
+            const int e = q4 << 2, p = e >> ln, j = e & (n - 1);
+            float4 va, vb;
+            if (s == 1) {
+              va = load4(x + j, xal);
+              vb = load4(x + j + n, xal);
+            } else if (from_view) {
+              va = stage1x4(p, j);
+              vb = stage1x4(p, j + n);
+            } else {
+              const float* row = par + rl[p] * 2 * n;
+              va = load4(row + j, true);
+              vb = load4(row + j + n, true);
+            }
+            unsigned dw = 0u;
+            if (dyn) {
+              const int i = rd0[p] * n + j;
+              dw = d0[i >> 5] >> (i & 31);
+            }
+            *reinterpret_cast<float4*>(out + e) = fg_step4(dyn, va, vb, dw);
           }
-          const float d = (float)bit_at(d1, r1[p] * n1 + j1);
-          return xa * (1.f - 2.f * d) + xb;
-        };
-        for (int e = grank; e < P * n; e += gsize) {
-          const int p = e >> ln, j = e & (n - 1);
-          float va, vb;
-          if (s == 1) {
-            va = x[j];
-            vb = x[j + n];
-          } else if (from_view) {
-            va = stage1(p, j);
-            vb = stage1(p, j + n);
-          } else {
-            const float* row = par + rl[p] * 2 * n;
-            va = row[j];
-            vb = row[j + n];
+        } else {
+          auto stage1 = [&](int p, int j1) {
+            return fg_step(dyn1, x[j1], x[j1 + n1], dyn1 ? bit_at(d1, r1[p] * n1 + j1) : 0u);
+          };
+          for (int e = grank; e < P * n; e += gsize) {
+            const int p = e >> ln, j = e & (n - 1);
+            float va, vb;
+            if (s == 1) {
+              va = x[j];
+              vb = x[j + n];
+            } else if (from_view) {
+              va = stage1(p, j);
+              vb = stage1(p, j + n);
+            } else {
+              const float* row = par + rl[p] * 2 * n;
+              va = row[j];
+              vb = row[j + n];
+            }
+            out[e] = fg_step(dyn, va, vb, dyn ? bit_at(d0, rd0[p] * n + j) : 0u);
           }
-          float v;
-          if (kind == DOWN_FRESH) {
-            const float sg = ((va < 0.f) != (vb < 0.f)) ? -1.f : 1.f;
-            v = sg * fminf(fabsf(va), fabsf(vb));
-          } else {
-            const float d = (float)bit_at(d0, rd0[p] * n + j);
-            v = va * (1.f - 2.f * d) + vb;
-          }
-          out[e] = v;
         }
       }
       if (grank == 0) maps[3 * (s - 1)] = ident_map();
