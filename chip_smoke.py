@@ -66,10 +66,13 @@ Phases (any failure exits non-zero):
 12. bch_sc (N=256 = 16 x 16 eBCH, K=128, SC; BASELINE config 3): the
    stage kernel stage_down (K6, csrc/stage_down.cu) == its plain version
    bit for bit for every input i < 15 of the 16x16 kernel at bch_sc's
-   shapes (P, n) = (1, 16), (1, 1), (8, 16), (8, 1), B=8192;
+   shapes (P, n) = (1, 16), (1, 1), (8, 16), (8, 1), B=8192, the trellis
+   inputs (i < 5) also on integer, huge (+-1e30, 4e30) and +-inf inputs
+   (NaN where the plain version gives NaN);
 13. the decode body's l > 2 branch == plain bit for bit: K1, K2, K4, K5
    (K4/K5 with injected noise) on mixed specs with and without CRC at
-   B=1024, and at bch_sc B=8192: K2 at L=1, K4/K5 at L=1, K1 at L=8, and
+   B=1024, at bch_sc L = 1..8 at B=1024, and at bch_sc B=8192: K2 at L=1,
+   K4/K5 at L=1, K1 at L=8, and
    on integer (tied) and huge (+-1e30, 4e30) LLRs and noise K1 at L=8, K2
    at L=1, K4/K5 at L=1 and 8; the in-kernel Philox draw at bch_sc (u_true
    exact, <= 1 frame in 10^4);
@@ -84,7 +87,8 @@ Phases (any failure exits non-zero):
 16. times by CUDA events at bch_sc, B=8192 and the preset's 2048: K1 (L=8),
    K2, K4, K5 (L=1), and K6 as the 105 launches of one hybrid decode, each
    with its plain version and bound, K1-K5 at B=8192 beside their times
-   before the capacity-8 redesign (PERF.md); the hybrid decode's own time;
+   before the syndrome-trellis redesign (PERF.md §6); the hybrid
+   decode's own time;
 17. list capacity 32: K1, K2, K4, K5 == plain bit for bit at L = 16 and 32
    on small Arikan and mixed specs, on Gaussian LLRs and noise and on huge
    ones (+-1e30, 4e30, one +-inf a codeword on the Arikan spec; noise
@@ -96,7 +100,8 @@ Phases (any failure exits non-zero):
    on sorted metrics);
 19. mixed_scl32 (N=4096 = 16 x 16 x 2^4, K=2048 + CRC-16, L=32; BASELINE
    config 4): K6 == plain bit for bit at its outer launches' shapes, (P,
-   n, B) = (1, 256, 256) and (32, 256, 256), every i < 15; at the
+   n, B) = (1, 256, 256) and (32, 256, 256), every i < 15, the trellis
+   inputs also on integer, huge and +-inf inputs; at the
    preset's batch 256 and 1.25 dB: one decode through the
    K3 route (`subtree_backend="pallas"`, `big_stage_backend="pallas"`)
    launches 13 K3 and 15 K6; K3 == plain on the 13 children's inputs
@@ -115,7 +120,8 @@ Phases (any failure exits non-zero):
    first 4 batches; on the sweep's frames, frame errors fall with the list
    size: L=8 (K1) > L=16 (K1, capacity 32) > L=32 (the K3 route);
 22. times at mixed_scl32, B=256 and 2048: the 13 K3 launches, the 15 outer
-   K6 launches (each with plain version and bound) and the whole decode
+   K6 launches (each with plain version and bound; at B=256 beside their
+   times before the syndrome-trellis redesign) and the whole decode
    through the K3 route and through the hybrid; K3 == plain on the 13
    children's inputs captured at B=2048;
 23. the op-kind split of K5 and K1 at ca_scl, B=8192, of K5 at bch_sc
@@ -291,11 +297,17 @@ ENTRY_FIELDS = {"preset", "backend", "batch", "big_stage", "subtree", "measures"
                 "build_s", "frame_errors", "launches", "device", "card"}
 FLAGSHIP_MAX = 1.05     # the flagship bench's rate over K1's own: at most
 FLAGSHIP_LOW = 0.9      # below it: printed as a finding
-# bch_sc at B=8192 before the general body's capacity-8 redesign (PERF.md:
-# sim/kernel_times.py on an NVIDIA H100 80GB HBM3, 700 W; K1 at L=8, the
-# others at L=1), printed beside phase 16's times
-BCH_PARENT_MS = {"scl_decode": 19.121, "scl_decode_traj": 9.376,
-                 "scl_mc_traj": 8.843, "scl_mc_counters": 8.712}
+# the rows the syndrome-trellis redesign changed, before it (PERF.md §6:
+# sim/kernel_times.py on an NVIDIA H100 80GB HBM3, 700 W, the mean of
+# two runs of the parent tree): bch_sc at B=8192 (K1 at L=8, the others at
+# L=1), printed beside phase 16's times; mixed_scl32's 13 K3 and 15 outer
+# K6 launches of a decode at B=256, beside phase 22's
+TRELLIS_PARENT_MS = {("scl_decode", "bch_sc"): 10.7762,
+                     ("scl_decode_traj", "bch_sc"): 2.4337,
+                     ("scl_mc_traj", "bch_sc"): 2.5203,
+                     ("scl_mc_counters", "bch_sc"): 2.5213,
+                     ("scl_subtree", "mixed_scl32"): 14.9692,
+                     ("stage_down", "mixed_scl32"): 8.3942}
 # the Arikan capacity-8 instances at B=8192 before the body's second
 # redesign (PERF.md: sim/kernel_times.py on an NVIDIA H100 80GB HBM3, 700 W;
 # K1, K2, K4, K5 at ca_scl L=8, and K2 at arikan_sc L=1), printed beside
@@ -311,10 +323,14 @@ FLAGSHIP_PARENT = 1_396_876
 
 
 def beside_parent(kernel: str, preset: str, ms: float) -> str:
-    """`ms` beside the Arikan instance's time before the second redesign."""
+    """`ms` beside the Arikan instance's time before the body's second
+    redesign, or the l > 2 row's before the trellis redesign."""
     parent = ARIKAN_PARENT_MS.get((kernel, preset))
-    return (f" (before the second Arikan redesign: {parent} ms, "
-            f"x{parent / ms:.3f})" if parent else "")
+    if parent:
+        return f" (before the second Arikan redesign: {parent} ms, x{parent / ms:.3f})"
+    parent = TRELLIS_PARENT_MS.get((kernel, preset))
+    return (f" (before the trellis redesign: {parent} ms, x{parent / ms:.3f})"
+            if parent else "")
 
 
 def all_launches() -> dict:
@@ -342,6 +358,33 @@ def huge_values(x: np.ndarray, rng, inf: bool) -> np.ndarray:
         rows[np.arange(rows.shape[0]), rng.integers(0, x.shape[-1], rows.shape[0])] = (
             np.inf * np.sign(rng.standard_normal(rows.shape[0])))
     return x
+
+
+def trellis_cases(dev, gen, paths: int, n: int, b: int):
+    """(kind, lam [paths, 16, n, b]) of K6's trellis checks: Gaussian,
+    integer, huge (~30% at +-1e30, 5% at +-4e30) and +-inf (the huge ones
+    with one +-inf a (path, position, codeword): where both hypotheses cost
+    inf, the marginal is inf - inf, NaN in the kernel and the plain version
+    alike)."""
+    g = 2.0 * torch.randn((paths, 16, n, b), generator=gen, device=dev)
+    pick = torch.rand(g.shape, generator=gen, device=dev)
+    huge = torch.where(pick < 0.3, torch.sign(g) * 1e30, g)
+    huge = torch.where((pick > 0.3) & (pick < 0.35), torch.sign(g) * 4e30, huge)
+    at = torch.randint(0, 16, (paths, 1, n, b), generator=gen, device=dev)
+    sign = torch.where(torch.rand((paths, 1, n, b), generator=gen, device=dev) < 0.5,
+                       -1.0, 1.0)
+    inf = huge.scatter(1, at, sign * math.inf)
+    return [("gauss", g), ("int", torch.round(g)), ("huge", huge), ("inf", inf)]
+
+
+def same_nan(got: torch.Tensor, ref: torch.Tensor) -> tuple[bool, float]:
+    """got == ref bit for bit, NaN where ref is NaN; the largest
+    difference elsewhere."""
+    nan = torch.isnan(ref)
+    ok = torch.equal(nan, torch.isnan(got)) and torch.equal(got[~nan], ref[~nan])
+    fin = ~nan & torch.isfinite(ref) & torch.isfinite(got)
+    d = float((got[fin].double() - ref[fin].double()).abs().max()) if fin.any() else 0.0
+    return ok, d
 
 
 def two_proportion_z(e1: int, n1: int, e2: int, n2: int) -> float:
@@ -397,8 +440,10 @@ def stage_down_ops(kernel, i: int, shared: bool = False) -> int:
     """Least element operations of input i of an l x l kernel (l > 2) for
     one (path, position), from its coset-adjusted LLRs, that give the
     reference's floats: i = l-1 a weighted correlation (l multiplies,
-    l - 1 adds); the syndrome trellis per section a sign flip and, per
-    hypothesis, 2 relus and per state 2 adds and a min; the tail table
+    l - 1 adds); the syndrome trellis one pass for both hypotheses (read
+    at states 0 and s1 = H row_i), per section 2 relus and per state 2
+    adds and a min (two passes, the reference's, were l (1 + 2 (2 + 3S)));
+    the tail table
     over the columns that must be walked (half of them where row l-1 is
     all ones: a column and its complement give |corr|), the cheaper of
     (a) the `half_tables`, then per column one parity XOR and per
@@ -414,7 +459,7 @@ def stage_down_ops(kernel, i: int, shared: bool = False) -> int:
         return 2 * l - 1
     proc = processor(kernel)
     if proc.backend[i] == "trellis":
-        return l * (1 + 2 * (2 + 3 * proc.syn[i][0]))
+        return l * (2 + 3 * proc.syn[i][0])
     walk = int(big_kernel(kernel).walk[i])
     if shared:
         return walk * 5 + 2
@@ -771,9 +816,19 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             check("stage_down", f"mixed_scl32 outer i={i} P={paths} n={n1} "
                   f"B={mixed.batch}", [fn(lam)], [fn.plain(lam)])
             n_k6 += 1
+        for kind, lam in trellis_cases(dev, sgen, paths, n1, mixed.batch):
+            for i in range(5):
+                fn = cuda_stage.build_down_kernel(mspec.kernels[0], i, paths, n1)
+                ok, d = same_nan(fn(lam), fn.plain(lam))
+                err["stage_down"] = max(err["stage_down"], d)
+                if not ok:
+                    raise SystemExit(f"stage_down != plain on mixed_scl32 trellis "
+                                     f"input i={i} P={paths} {kind}")
+                n_k6 += 1
     torch.cuda.synchronize()
     print(f"stage_down == plain at mixed_scl32's outer shapes: {n_k6} cases "
-          f"bit-exact (every i < 15; P = 1, {P}; n={n1}; B={mixed.batch})")
+          f"bit-exact (every i < 15; the trellis inputs i < 5 also on integer, "
+          f"huge and +-inf inputs; P = 1, {P}; n={n1}; B={mixed.batch})")
     _, llr = mc_draw(mspec, step_seed(MIXED_SEED, 99, 0, 0), sigma, mixed.batch, dev)
     zero_launches()
     out_route, calls = captured(llr)
@@ -899,8 +954,9 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
                       core.plain(lam1, pm))
             print(f"scl_subtree == plain on all {len(calls)} children at B={b} "
                   f"(inputs captured from the decode)")
+        parent = beside_parent("scl_subtree", "mixed_scl32", r["ms"]) if not tag else ""
         print(f"time: scl_subtree mixed_scl32 L=32, the {len(calls)} launches of "
-              f"a decode, B={b} ms={r['ms']} plain_ms={r.get('plain_ms')} "
+              f"a decode, B={b} ms={r['ms']}{parent} plain_ms={r.get('plain_ms')} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}: bytes={r['bytes']} "
               f"{r['t_bytes']} ms, element_ops={r['ops']} {r['t_ops']} ms) [{card}]")
         views = {paths: 2.0 * torch.randn((paths, 16, outer[0][2], b),
@@ -917,8 +973,9 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
         extra.setdefault("stage_down", {}).update(
             {k + tag: r6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
              if k in r6})
+        parent = beside_parent("stage_down", "mixed_scl32", r6["ms"]) if not tag else ""
         print(f"time: stage_down mixed_scl32, the {len(outer)} outer launches of a "
-              f"decode, B={b} ms={r6['ms']} plain_ms={r6.get('plain_ms')} "
+              f"decode, B={b} ms={r6['ms']}{parent} plain_ms={r6.get('plain_ms')} "
               f"bound_ms={r6['bound_ms']} ({r6['bound_by']}) [{card}]")
         for label, fn in (("K3 route", route), ("hybrid", hybrid)):
             ms = time_ms(lambda: fn(llr), iters=2, warmup=1)
@@ -958,9 +1015,22 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             check("stage_down", f"i={i} P={paths} n={n} B={BATCH}", [fn(lam)],
                   [fn.plain(lam)])
             n_k6 += 1
+    # the trellis inputs (i < 5) on tied, huge and infinite inputs too
+    for paths, n in ((1, 16), (1, 1), (8, 16), (8, 1)):
+        for kind, lam in trellis_cases(dev, sgen, paths, n, BATCH):
+            for i in range(5):
+                fn = cuda_stage.build_down_kernel(K16, i, paths, n)
+                ok, d = same_nan(fn(lam), fn.plain(lam))
+                err["stage_down"] = max(err["stage_down"], d)
+                if not ok:
+                    raise SystemExit(f"stage_down != plain on trellis input i={i} "
+                                     f"P={paths} n={n} B={BATCH} {kind}")
+                n_k6 += 1
     torch.cuda.synchronize()
     print(f"stage_down == plain: {n_k6} cases bit-exact (every i < 15 of the "
-          f"16x16 kernel; P, n = (1, 16), (1, 1), (8, 16), (8, 1); B={BATCH}), "
+          f"16x16 kernel; P, n = (1, 16), (1, 1), (8, 16), (8, 1); B={BATCH}; "
+          f"the trellis inputs i < 5 also on integer, huge and +-inf inputs, "
+          f"NaN where the plain version gives NaN), "
           f"max_abs_err={err['stage_down']}")
 
     # ---- 13. the decode body's l > 2 branch == plain ----
@@ -975,6 +1045,8 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
                           lsz, 1024, ("K1", "K2", "K4K5")))
     cases += [(f"bch_sc L=1 B={BATCH}", bspec, 1, BATCH, ("K2", "K4K5")),
               (f"bch_sc L=8 B={BATCH}", bspec, 8, BATCH, ("K1",))]
+    cases += [(f"bch_sc L={lsz} B=1024", bspec, lsz, 1024, ("K1", "K2", "K4K5"))
+              for lsz in range(1, 9)]
     ngen = torch.Generator(device=dev).manual_seed(256)
     for what, sp, lsz, b, kernels in cases:
         x = torch.as_tensor(2.0 * rng.standard_normal((b, sp.N)) + 0.5,
@@ -1040,7 +1112,8 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
         raise SystemExit(f"bch_sc in-kernel Philox: {differ} frames differ")
     print(f"l > 2 decode body == plain: {len(cases)} specs x kernels bit-exact "
           f"(mixed (16,), (4,4), (16,2), (2,16) CRC-8, (16,2,2) CRC-8 at B=1024; "
-          f"bch_sc K2 L=1, K4/K5 L=1 noise in, K1 L=8 at B={BATCH}; bch_sc "
+          f"bch_sc K2 L=1, K4/K5 L=1 noise in, K1 L=8 at B={BATCH}, K1, K2, "
+          f"K4/K5 at L = 1..8, B=1024; bch_sc "
           f"on integer and huge LLRs and noise: K1 L=8, K2 L=1, K4/K5 L=1 and 8); "
           f"bch_sc in-kernel Philox: u_true exact, {differ} of {BATCH} frames "
           f"differ")
@@ -1155,9 +1228,8 @@ def bch_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             r = dict(bd, ms=time_ms(kfn, iters=10, reps=3),
                      plain_ms=time_ms(pfn, iters=1, warmup=1))
             shape = f"bch_sc L={8 if name == 'scl_decode' else 1} B={b}"
-            parent = (f" (before the capacity-8 redesign: {BCH_PARENT_MS[name]} ms, "
-                      f"x{BCH_PARENT_MS[name] / r['ms']:.2f})"
-                      if name in BCH_PARENT_MS and b == BATCH else "")
+            parent = (beside_parent(name, "bch_sc", r["ms"])
+                      if name != "stage_down" and b == BATCH else "")
             print(f"time: {name} {shape} ms={r['ms']}{parent} "
                   f"cw_per_s={b / r['ms'] * 1e3} "
                   f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
@@ -2105,8 +2177,15 @@ def main() -> int:
         ms=time_ms(lambda: sc.trajectory(va), iters=20, reps=3),
         plain_ms=time_ms(lambda: sc.plain_trajectory(va), iters=2, warmup=1))
     ca_traj_ms = time_ms(lambda: ca_traj.trajectory(v), iters=10)
+    nq = len(ca_traj.spans)
+    ca_traj_bound = bound(table_bytes(spec, L)
+                          + BATCH * (4 * spec.N + spec.N * L + nq * L + 4 * L),
+                          BATCH * element_ops(spec, L, epilogue=False))
     print(f"kernel: scl_decode_traj ca_scl L={L} B={BATCH} ms={ca_traj_ms}"
-          f"{beside_parent('scl_decode_traj', 'ca_scl', ca_traj_ms)} [{card}]")
+          f"{beside_parent('scl_decode_traj', 'ca_scl', ca_traj_ms)} "
+          f"bound_ms={ca_traj_bound['bound_ms']} ({ca_traj_bound['bound_by']}: "
+          f"bytes={ca_traj_bound['bytes']} {ca_traj_bound['t_bytes']} ms, "
+          f"element_ops={ca_traj_bound['ops']} {ca_traj_bound['t_ops']} ms) [{card}]")
     key = step_seed(SWEEP_SEED, 99, 0, 0)
     nq = len(full.decoder.spans)
     rows["scl_mc_traj"] = dict(

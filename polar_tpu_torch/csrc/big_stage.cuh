@@ -11,11 +11,10 @@
 //
 // - i = l-1: the fixed pairwise tree ((0+1)+(2+3))+... of v[k] * K[i,k]
 //   with 0/1 weights (zero weights give -0.0 terms; kept).
-// - Syndrome trellis (small i, S = 2^(i+1) <= 32 states for l <= 16): one
-//   lane per state, alpha'[st] = min(alpha[st] + pen0, alpha[st ^ c_t] +
-//   pen1) for both hypotheses, sections in order, INF = 3e38 / 4 padding,
-//   unclamped. The relabelling alpha[st ^ c_t] is a warp shuffle, so the
-//   states never index a register array at run time.
+// - Syndrome trellis (small i, S = 2^(i+1) <= 32 states for l <= 16):
+//   alpha'[st] = min(alpha[st] + pen0, alpha[st ^ c_t] + pen1), sections
+//   in order, INF = 3e38 / 4 padding, unclamped, in one pass for both
+//   hypotheses (`trellis_llr` says why that is the same float).
 // - Tail table (the other inputs): max over the C = 2^(l-1-i) tail
 //   codewords of the tree-folded correlation, for both hypotheses; the
 //   result is 0.5 * (corr0 - corr1). A column is its parity mask par (bit
@@ -46,6 +45,7 @@ struct BigKernel {
   unsigned char cols[kMaxL][kMaxL];   // input i, section t: syndrome column
   unsigned short walk[kMaxL];         // input i: table columns walked
   unsigned short quads;               // bit i: input i takes quad tables
+  unsigned char s1[kMaxL];            // input i: trellis end state of u_i = 1
 };
 
 // The fixed pairwise tree over t[0..l) (l a power of two <= 16).
@@ -70,26 +70,200 @@ __device__ __forceinline__ float last_llr(const BigKernel& K,
   return tree_fold(t, K.l);
 }
 
-// Syndrome trellis of input i over a group of S = K.states[i] lanes, one
-// state each (st = lane & (S-1)); every lane of the warp calls it with the
-// same (K, i). The result is valid in the group's lane st = 0.
-__device__ __forceinline__ float trellis_llr(const BigKernel& K, int i,
-                                             const float (&v)[kMaxL], int st) {
-  float a0 = (st == 0) ? 0.f : kTrellisInf;   // hypothesis u_i = 0
-  float a1 = a0;                               // u_i = 1: row i sign flip
+// Lanes a syndrome-trellis element takes (a power of two <= S): at least
+// S / rmax, and more only where E elements at that count leave at least
+// half of `threads` idle: doubled while E * lanes * 2 <= threads. Each
+// lane holds R = S / lanes consecutive states in registers. The stage
+// kernel asks with the threads that fill the card, the decode body with
+// its block (ops/cuda_stage.py `trellis_lanes` mirrors the rule).
+__host__ __device__ __forceinline__ int trellis_lanes(int S, long long E,
+                                                      long long threads,
+                                                      int rmax) {
+  int lanes = S > rmax ? S / rmax : 1;
+  while (lanes < S && E * lanes * 2 <= threads) lanes *= 2;
+  return lanes;
+}
+
+// One section's update of R states a lane, the partner of register j
+// (o[j ^ C], C = the low bits of c_t) a compile-time register: a[j] =
+// min(a[j] + p0, o[j ^ C] + p1).
+template <int R, int C>
+__device__ __forceinline__ void trellis_mix(float (&a)[R], const float (&o)[R],
+                                            float p0, float p1) {
+  float n[R];
 #pragma unroll
-  for (int t = 0; t < kMaxL; ++t) {
-    if (t < K.l) {
-      const float x = v[t];
-      const float y = ((K.kcol[t] >> i) & 1u) ? x * -1.f : x;
+  for (int j = 0; j < R; ++j) n[j] = fminf(a[j] + p0, o[j ^ C] + p1);
+#pragma unroll
+  for (int j = 0; j < R; ++j) a[j] = n[j];
+}
+
+// trellis_mix<R, lo> for a run-time lo in [LO, HI): a binary tree of
+// warp-uniform branches (every lane of a warp has the same c_t).
+template <int R, int LO, int HI>
+__device__ __forceinline__ void trellis_case(int lo, float (&a)[R],
+                                             const float (&o)[R], float p0,
+                                             float p1) {
+  if constexpr (HI - LO == 1) {
+    trellis_mix<R, LO>(a, o, p0, p1);
+  } else {
+    constexpr int MID = (LO + HI) / 2;
+    if (lo < MID) trellis_case<R, LO, MID>(lo, a, o, p0, p1);
+    else trellis_case<R, MID, HI>(lo, a, o, p0, p1);
+  }
+}
+
+// Syndrome trellis of input i, one pass: the LLR of one element on a group
+// of `lanes` aligned lanes (S / R; SHFL: lanes > 1; every lane of the warp
+// in such a group, all with the same (K, i)), lane g holding states g*R ..
+// g*R + R-1. x(t) gives section t's coset-adjusted LLR v[t]. The result
+// is valid in the group's lane g = 0.
+//
+// One pass for both hypotheses: u_i = 1 is the coset row_i + C of the tail
+// code C, the paths from state 0 to s1 = H row_i (`K.s1[i]`, filled on the
+// host). The reference's second pass flips the sign of v[t] where row i
+// has a 1, which swaps that section's two penalties: its path b costs, term
+// by term in the same order, what path b ^ row_i costs here, and
+// Hb = 0 <=> H(b ^ row_i) = s1, the INF-started paths included. A min of
+// left-to-right float sums is the min over paths of each path's sum
+// (rounding is monotone), so alpha[s1] is the second pass's alpha[0] bit
+// for bit; the result is alpha[s1] - alpha[0].
+//
+// The relabelling alpha[st ^ c_t] splits c_t: the bits above log2 R move
+// registers between lanes, one shuffle a register by c_t / R lanes (none
+// at one lane an element); the bits below (lo) permute a lane's registers
+// without indexing a register array at run time:
+// - R <= 4: log2 R levels of selects (o[j] = bit b of lo ? o[j ^ b] :
+//   o[j]); the l sections unrolled, the element's inputs loaded first;
+// - R >= 8: the update compiled once for each lo (`trellis_case`, R
+//   cases of 3R instructions), in a loop over sections that is not
+//   unrolled. By default a step is one section, its column read in the
+//   step and its input loaded four sections ahead. With PRE at R = 8 the
+//   element's inputs and the input's 16 column bytes (four words) are
+//   loaded first and a step takes four sections, then shifts both by
+//   four: no load waits inside the loop, for ~20 more registers (the
+//   callers say where that pays and does not spill). Sections past l (l
+//   a multiple of 4 in every kernel here) read input 0 and column 0: no
+//   change.
+template <int R, bool SHFL, bool PRE, class X>
+__device__ __forceinline__ float trellis_llr(const BigKernel& K, int i, int g,
+                                             int lanes, X x) {
+  const int l = K.l;
+  float a[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) a[j] = (g == 0 && j == 0) ? 0.f : kTrellisInf;
+  if constexpr (R <= 4) {
+    float v[kMaxL];
+#pragma unroll
+    for (int t = 0; t < kMaxL; ++t) v[t] = t < l ? x(t) : 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxL; ++t) {
+      if (t < l) {
+        const int c = K.cols[i][t];
+        float o[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          o[j] = SHFL ? __shfl_xor_sync(kFullMask, a[j], c / R) : a[j];
+#pragma unroll
+        for (int b = 1; b < R; b <<= 1) {
+          const bool f = (c & b) != 0;
+          float q[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) q[j] = f ? o[j ^ b] : o[j];
+#pragma unroll
+          for (int j = 0; j < R; ++j) o[j] = q[j];
+        }
+        const float p0 = fmaxf(-v[t], 0.f), p1 = fmaxf(v[t], 0.f);
+#pragma unroll
+        for (int j = 0; j < R; ++j) a[j] = fminf(a[j] + p0, o[j] + p1);
+      }
+    }
+  } else if constexpr (R == 8 && PRE) {
+    float v[kMaxL];
+#pragma unroll
+    for (int t = 0; t < kMaxL; ++t) v[t] = t < l ? x(t) : 0.f;
+    unsigned cw[kMaxL / 4];
+#pragma unroll
+    for (int q = 0; q < kMaxL / 4; ++q)
+      cw[q] = reinterpret_cast<const unsigned*>(K.cols[i])[q];
+#pragma unroll 1
+    for (int t0 = 0; t0 < l; t0 += 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = (int)((cw[0] >> (8 * k)) & 0xffu);
+        const float p0 = fmaxf(-v[k], 0.f), p1 = fmaxf(v[k], 0.f);
+        if constexpr (SHFL) {
+          float o[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) o[j] = __shfl_xor_sync(kFullMask, a[j], c / R);
+          trellis_case<R, 0, R>(c & (R - 1), a, o, p0, p1);
+        } else {
+          trellis_case<R, 0, R>(c & (R - 1), a, a, p0, p1);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t + 4 < kMaxL; ++t) v[t] = v[t + 4];
+#pragma unroll
+      for (int q = 0; q + 1 < kMaxL / 4; ++q) cw[q] = cw[q + 1];
+    }
+  } else {
+    float w0 = x(0), w1 = l > 1 ? x(1) : 0.f, w2 = l > 2 ? x(2) : 0.f,
+          w3 = l > 3 ? x(3) : 0.f;
+#pragma unroll 1
+    for (int t = 0; t < l; ++t) {
+      const float xn = t + 4 < l ? x(t + 4) : 0.f;
+      const float p0 = fmaxf(-w0, 0.f), p1 = fmaxf(w0, 0.f);
       const int c = K.cols[i][t];
-      const float o0 = __shfl_xor_sync(kFullMask, a0, c);
-      const float o1 = __shfl_xor_sync(kFullMask, a1, c);
-      a0 = fminf(a0 + fmaxf(-x, 0.f), o0 + fmaxf(x, 0.f));
-      a1 = fminf(a1 + fmaxf(-y, 0.f), o1 + fmaxf(y, 0.f));
+      if constexpr (SHFL) {
+        float o[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) o[j] = __shfl_xor_sync(kFullMask, a[j], c / R);
+        trellis_case<R, 0, R>(c & (R - 1), a, o, p0, p1);
+      } else {
+        trellis_case<R, 0, R>(c & (R - 1), a, a, p0, p1);
+      }
+      w0 = w1;
+      w1 = w2;
+      w2 = w3;
+      w3 = xn;
     }
   }
-  return a1 - a0;
+  // alpha[s1]: register s1 % R of lane s1 / R of the group
+  const int s1 = K.s1[i];
+  float z = a[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j)
+    if ((s1 & (R - 1)) == j) z = a[j];
+  if constexpr (SHFL) z = __shfl_sync(kFullMask, z, s1 / R, lanes);
+  return z - a[0];
+}
+
+// trellis_llr at R states a lane: with shuffles where lanes > 1 (R = 32
+// only at one lane an element, R = 1 only at S lanes).
+template <int R, bool PRE, class X>
+__device__ __forceinline__ float trellis_llr_r(const BigKernel& K, int i, int g,
+                                               int lanes, X x) {
+  if constexpr (R == 32) return trellis_llr<32, false, PRE>(K, i, g, lanes, x);
+  else if constexpr (R == 1) return trellis_llr<1, true, PRE>(K, i, g, lanes, x);
+  else
+    return lanes > 1 ? trellis_llr<R, true, PRE>(K, i, g, lanes, x)
+                     : trellis_llr<R, false, PRE>(K, i, g, lanes, x);
+}
+
+// trellis_llr at R = S / lanes, a run-time power of two <= RMAX (lanes
+// from `trellis_lanes` with rmax = RMAX).
+template <int RMAX, bool PRE, class X>
+__device__ __forceinline__ float trellis_llr_any(const BigKernel& K, int i,
+                                                 int g, int lanes, X x) {
+  const int R = K.states[i] / lanes;
+  if constexpr (RMAX >= 32)
+    if (R == 32) return trellis_llr_r<32, PRE>(K, i, g, lanes, x);
+  if constexpr (RMAX >= 16)
+    if (R == 16) return trellis_llr_r<16, PRE>(K, i, g, lanes, x);
+  if constexpr (RMAX >= 8)
+    if (R == 8) return trellis_llr_r<8, PRE>(K, i, g, lanes, x);
+  if (R == 4) return trellis_llr_r<4, PRE>(K, i, g, lanes, x);
+  if (R == 2) return trellis_llr_r<2, PRE>(K, i, g, lanes, x);
+  return trellis_llr_r<1, PRE>(K, i, g, lanes, x);
 }
 
 // Columns of the tail table of input i that a lane group walks: with

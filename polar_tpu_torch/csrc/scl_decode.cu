@@ -787,10 +787,22 @@ __device__ __forceinline__ void big_view(const BigKernel& K, const float* row,
   }
 }
 
+// States a lane of the decode body's syndrome trellis at most (`big_down`,
+// bigstage::trellis_llr_any; ops/cuda_scl.py BODY_TRELLIS_MAX_R mirrors
+// it). Measured on an H100 (PERF.md §6): up to R = 32 (~3k
+// instructions a variant at R = 32) spilled 6-36 B at 128 registers in 13
+// of the 15 l > 2 instances; at most R = 4 (every section unrolled) spilled
+// too and ran bch_sc's K5 3% slower than before the redesign.
+constexpr int kTrellisMaxR = 8;
+
 // DOWN at an l > 2 stage: input i's LLR of every (path, position) into
 // out[P, n] (n = 1 << ln). The whole block of T threads; capacity 32 ends
 // with a barrier, capacity 8 leaves it to the caller's.
-template <int CAP, int T>
+// PRE: the syndrome trellis loads a position's inputs first (`trellis_llr`
+// at R = 8), which the capacity-32 subtree kernel (K3) holds in its 128
+// registers; the other l > 2 instances spilled 4-64 B with it (PERF.md
+// §6) and take the loads four sections ahead.
+template <int CAP, int T, bool PRE>
 __device__ void big_down(const BigKernel& K, int i, float* out,
                          const float* x, const float* par,
                          const unsigned char* rl, const unsigned char* dec0,
@@ -818,16 +830,30 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
   }
   const int S = K.states[i];
   if (S) {
-    // syndrome trellis: S lanes a position, warp-uniform rounds
-    const int per = T / S;
+    // syndrome trellis: `lanes` lanes a position, R = S / lanes states a
+    // lane (bigstage::trellis_lanes: one lane a position unless the block
+    // would idle), warp-uniform rounds; a warp with no position of its
+    // own in a round skips it. A position's prior decisions are read once
+    // (its coset mask u); `trellis_llr` reads its parent row's entries.
+    const int lanes = bigstage::trellis_lanes(S, E, T, kTrellisMaxR);
+    const int per = T / lanes;
+    const int g = lane & (lanes - 1);
     for (int base = 0; base < E; base += per) {
-      const int e0 = base + tid / S;
+      if (base + (tid & ~31) / lanes >= E) break;
+      const int e0 = base + tid / lanes;
       const int e = e0 < E ? e0 : E - 1;
       int p, j;
       at(e, p, j);
-      big_view(K, row_of(p), n, j, i, dec0, rd, P, p, v);
-      const float r = bigstage::trellis_llr(K, i, v, lane & (S - 1));
-      if (e0 < E && (lane & (S - 1)) == 0) out[e] = r;
+      unsigned u = 0u;
+      for (int c = 0; c < i; ++c)
+        u |= (unsigned)dec0[c * P * n + rd[c * P + p] * n + j] << c;
+      const float* row = row_of(p) + j;
+      const float r = bigstage::trellis_llr_any<kTrellisMaxR, PRE>(
+          K, i, g, lanes, [&](int t) {
+            const float y = row[t * n];
+            return (__popc(u & K.kcol[t]) & 1u) ? -y : y;
+          });
+      if (e0 < E && g == 0) out[e] = r;
     }
     if constexpr (CAP == 32) block_sync<T>();
     return;
@@ -1041,8 +1067,9 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         const BigKernel& bk = st[s].k;
         if (bk.l > 2) {
           const int bi = kind == DOWN_FRESH ? 0 : child;
-          big_down<CAP, T>(bk, bi, out, x, par, rl, d0, rd0, P, n, ln, sm.redf,
-                           tid, lane, warp);
+          big_down<CAP, T, CAP == 32 && OUT == kSubtree>(
+              bk, bi, out, x, par, rl, d0, rd0, P, n, ln, sm.redf, tid, lane,
+              warp);
           if (tid < P) rlam(s)[tid] = (unsigned char)tid;
           block_sync<T>();
           clk_mark(bi == bk.l - 1 ? kClkBigLast

@@ -11,16 +11,23 @@
 // The marginal is independent per output element (p, r), r in [0, n*B).
 // What the TPU version did for its tiling (a VMEM budget, 128-lane tiles,
 // `pick_mt`) has no counterpart here. A group of `lanes` threads computes
-// one element: for the syndrome trellis one lane per state (S lanes, the
-// state relabelling is a warp shuffle), for the tail table G lanes that
+// one element: for the syndrome trellis R = S / lanes states a lane (a
+// kernel of its own, `stage_trellis<R>`), for the tail table G lanes that
 // share its columns and reduce the two maxima by shuffles. The kernel's
 // rows, columns, syndrome columns and the input index come in the
 // argument block.
 //
 // What bounds it on an H100: operations. It reads 4*l bytes and writes 4
-// an element, but does l*S*2 min-plus steps (trellis) or walks up to 512
+// an element, but does l*S min-plus steps (trellis) or walks up to 512
 // tail-table columns of two correlations each (i = 5 of the 16x16 kernel).
-// The design (csrc/big_stage.cuh `table_max`): the columns walk in Gray
+// The trellis (csrc/big_stage.cuh `trellis_llr`): one pass for both
+// hypotheses, read at states 0 and s1; one thread an element (R = S
+// states in registers, no shuffle) wherever the elements fill the card
+// (ops/cuda_stage.py `lanes_for`: a warp for each scheduler; the source's
+// `trellis_lanes`), so a warp reads 32 consecutive elements of each input
+// row, each row loaded before the section that uses it (all first up to
+// R = 8, four sections ahead from R = 16 on).
+// The table (csrc/big_stage.cuh `table_max`): the columns walk in Gray
 // order, so a column's parity is one XOR; complementary columns are
 // walked once (|corr|); and from a walk of QUAD_MIN_COLS columns on, a
 // group of 16 lanes holds the element's quad tables (the fixed tree's
@@ -71,19 +78,48 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < bigstage::kMaxL; ++k)
     v[k] = (k < l) ? src[(size_t)k * a.nB] : 0.f;
-  float res;
-  if (a.k.states[a.i]) {
-    res = bigstage::trellis_llr(a.k, a.i, v, g);
-  } else {
-    float m0, m1;
-    bigstage::table_max(a.k, a.i, v, g, a.lanes,
-                        bigstage::table_walk(a.k, a.i),
-                        bigstage::table_quads(a.k, a.i, a.lanes), m0, m1);
-    m0 = bigstage::group_max(m0, a.lanes);
-    m1 = bigstage::group_max(m1, a.lanes);
-    res = 0.5f * (m0 - m1);
-  }
+  float m0, m1;
+  bigstage::table_max(a.k, a.i, v, g, a.lanes, bigstage::table_walk(a.k, a.i),
+                      bigstage::table_quads(a.k, a.i, a.lanes), m0, m1);
+  m0 = bigstage::group_max(m0, a.lanes);
+  m1 = bigstage::group_max(m1, a.lanes);
+  if (active && g == 0) a.out[e] = 0.5f * (m0 - m1);
+}
+
+// The syndrome-trellis inputs: groups of lanes = S / R threads an
+// element, the element's inputs read a section at a time (`stage_down`'s
+// indexing otherwise).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    stage_trellis(StageDownArgs a, unsigned p0, unsigned r0, unsigned count) {
+  const unsigned gt = blockIdx.x * kThreads + threadIdx.x;
+  unsigned e = gt >> (__ffs(a.lanes) - 1);
+  const int g = (int)(gt & (unsigned)(a.lanes - 1));
+  const bool active = e < count;
+  if (!active) e = count - 1;   // idle lanes still take part in the shuffles
+  const unsigned q = r0 + e;
+  const unsigned p = p0 + q / (unsigned)a.nB, r = q % (unsigned)a.nB;
+  const float* src = a.lam + (size_t)p * a.k.l * a.nB + r;
+  const size_t nB = (size_t)a.nB;
+  const float res = bigstage::trellis_llr_r<R, true>(
+      a.k, a.i, g, a.lanes, [src, nB](int t) { return src[(size_t)t * nB]; });
   if (active && g == 0) a.out[e] = res;
+}
+
+using Launch = void (*)(StageDownArgs, unsigned, unsigned, unsigned);
+
+// the kernel of input i at a.lanes lanes an element
+Launch kernel_for(const StageDownArgs& a) {
+  const int S = a.k.states[a.i];
+  if (!S) return stage_down;
+  switch (S / a.lanes) {
+    case 32: return stage_trellis<32>;
+    case 16: return stage_trellis<16>;
+    case 8: return stage_trellis<8>;
+    case 4: return stage_trellis<4>;
+    case 2: return stage_trellis<2>;
+    default: return stage_trellis<1>;
+  }
 }
 
 }  // namespace
@@ -96,9 +132,12 @@ int stage_down_launch(const StageDownArgs* a, void* stream) {
       || a->nB < 1 || a->lanes < 1 || a->lanes > 32
       || (a->lanes & (a->lanes - 1)))
     return (int)cudaErrorInvalidValue;
-  // a table group's lanes must not outnumber the columns it walks
-  if (!a->k.states[a->i] && a->lanes > bigstage::table_walk(a->k, a->i))
+  // a table group's lanes must not outnumber the columns it walks, a
+  // trellis group's the states
+  const int S = a->k.states[a->i];
+  if (S ? a->lanes > S : a->lanes > bigstage::table_walk(a->k, a->i))
     return (int)cudaErrorInvalidValue;
+  const Launch fn = kernel_for(*a);
   // launches of at most 2^31 threads, so that a launch's indices are
   // 32-bit
   const long long E = (long long)a->P * a->nB;
@@ -108,7 +147,7 @@ int stage_down_launch(const StageDownArgs* a, void* stream) {
     const long long blocks = (count * a->lanes + kThreads - 1) / kThreads;
     StageDownArgs c = *a;
     c.out += e0;
-    stage_down<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    fn<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         c, (unsigned)(e0 / a->nB), (unsigned)(e0 % a->nB), (unsigned)count);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -102,6 +102,12 @@ def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
             and int(list_size) <= 8)
 
 
+# States a lane of the decode body's syndrome trellis at most (the
+# source's kTrellisMaxR): `big_down` takes cuda_stage.trellis_lanes(S,
+# P * n, threads, BODY_TRELLIS_MAX_R) lanes a position.
+BODY_TRELLIS_MAX_R = 8
+
+
 def general_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
     """Threads a codeword of the general body on an H100 (the source's
     `general_threads`): at capacity 32 256; at capacity 8 one warp, or two

@@ -11,7 +11,9 @@ version, ops/kernel_proc.py StageProcessor.plain_llr.
 `big_kernel` builds the kernel's tables (also used by the decode kernels'
 l > 2 stages, ops/cuda_scl.py): the columns and rows of K as bit masks,
 and per input i the syndrome-trellis state count (0 where the tail table
-is the cheaper backend, as StageProcessor chooses) and syndrome columns.
+is the cheaper backend, as StageProcessor chooses), syndrome columns and
+the end state of hypothesis u_i = 1 (`s1`: the kernels' one pass is read
+at states 0 and s1).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ MAX_L = 16
 MAX_STATES = 32
 _THREADS = 256
 _FILL_THREADS = 132 * 2048   # resident threads of an H100: 132 SMs x 2048
+# a warp for each of an H100's 528 warp schedulers (132 SMs x 4): the
+# trellis's one thread an element fills the card from here (`lanes_for`)
+_TRELLIS_THREADS = 132 * 4 * 32
 
 LAUNCHES = {"stage_down": 0}
 SOURCE = cuda_build.CSRC / "stage_down.cu"
@@ -54,7 +59,8 @@ class BigKernel(ctypes.Structure):
                 ("states", ctypes.c_ubyte * MAX_L),
                 ("cols", (ctypes.c_ubyte * MAX_L) * MAX_L),
                 ("walk", ctypes.c_ushort * MAX_L),
-                ("quads", ctypes.c_ushort)]
+                ("quads", ctypes.c_ushort),
+                ("s1", ctypes.c_ubyte * MAX_L)]
 
 
 class StageDownArgs(ctypes.Structure):
@@ -84,7 +90,11 @@ def big_kernel(kernel: np.ndarray) -> BigKernel:
     lane group walks, is 2^(l-1-i), halved where
     row l-1 is all ones (each column's complement is then walked with it,
     as |corr|); bit i of `quads` is set where l is 8 or 16 and the walk is
-    at least QUAD_MIN_COLS columns (the quad tables pay there)."""
+    at least QUAD_MIN_COLS columns (the quad tables pay there).
+
+    For a trellis input, `s1[i]` is the syndrome H row_i of row i (the XOR
+    of its syndrome columns where row i has a 1): the trellis state in
+    which the paths of hypothesis u_i = 1 end."""
     kernel = np.asarray(kernel, np.uint8)
     l = int(kernel.shape[0])
     if not 2 <= l <= MAX_L:
@@ -109,8 +119,12 @@ def big_kernel(kernel: np.ndarray) -> BigKernel:
             raise ValueError(f"input {i} of the {l}x{l} kernel needs {S} "
                              f"trellis states; the kernels take <= {MAX_STATES}")
         bk.states[i] = S
+        s1 = 0
         for t, c in enumerate(cols):
             bk.cols[i][t] = c
+            if kernel[i, t]:
+                s1 ^= c
+        bk.s1[i] = s1
     return bk
 
 
@@ -132,13 +146,27 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+def trellis_lanes(S: int, elements: int, threads: int, rmax: int = MAX_STATES
+                  ) -> int:
+    """Lanes a syndrome-trellis element takes (csrc/big_stage.cuh
+    `trellis_lanes`): at least S / rmax, doubled while `elements` at twice
+    the count still fit in `threads`; each lane holds S / lanes states."""
+    lanes = S // rmax if S > rmax else 1
+    while lanes < S and elements * lanes * 2 <= threads:
+        lanes *= 2
+    return lanes
+
+
 def lanes_for(bk: BigKernel, i: int, elements: int) -> int:
-    """Threads per output element: the trellis's state count; for the
-    table 16 where the walk takes the quad tables (bit i of `bk.quads`),
-    else 1, doubled up to 32 (and up to the walk) while there are too few
-    elements to fill the card."""
+    """Threads per output element: for the trellis `trellis_lanes` over
+    a warp a scheduler (one thread an element, all S states in its
+    registers, wherever that keeps every scheduler busy; `kernel_times
+    --k6-lanes` times every count, PERF.md §6); for the table 16 where the
+    walk takes the quad tables (bit i of `bk.quads`), else 1, doubled up
+    to 32 (and up to the walk) while there are too few elements to fill
+    the card."""
     if bk.states[i]:
-        return int(bk.states[i])
+        return trellis_lanes(int(bk.states[i]), elements, _TRELLIS_THREADS)
     walk = int(bk.walk[i])
     lanes = 16 if (bk.quads >> i) & 1 else 1
     while lanes < 32 and lanes < walk and elements * lanes < _FILL_THREADS:
@@ -176,16 +204,20 @@ class DownKernel:
     def plain(self, lam_adj: torch.Tensor) -> torch.Tensor:
         return self.proc.plain_llr(self.i, lam_adj)
 
-    def kernel_call(self, lam_adj: torch.Tensor) -> torch.Tensor:
+    def kernel_call(self, lam_adj: torch.Tensor, lanes: int | None = None
+                    ) -> torch.Tensor:
+        """The kernel at `lanes` threads an element (default: `lanes_for`;
+        another power of two <= 32 and <= the states or the walk gives the
+        same floats)."""
         lam_adj = lam_adj.contiguous()
         B = lam_adj.shape[3]
         nB = self.n * B
         out = torch.empty((self.P, self.n, B), dtype=torch.float32,
                           device=lam_adj.device)
+        if lanes is None:
+            lanes = lanes_for(self.bk, self.i, self.P * nB)
         args = StageDownArgs(lam=lam_adj.data_ptr(), out=out.data_ptr(),
-                             P=self.P, nB=nB, i=self.i,
-                             lanes=lanes_for(self.bk, self.i, self.P * nB),
-                             k=self.bk)
+                             P=self.P, nB=nB, i=self.i, lanes=lanes, k=self.bk)
         lib = load_library()
         with torch.cuda.device(lam_adj.device):
             stream = torch.cuda.current_stream(lam_adj.device).cuda_stream

@@ -18,8 +18,10 @@ K1 and K2 at L=32 on (2,)*7 with CRC-8 and on the mixed (16,2,2); and
 default): K3 as the 13 subtree-kernel launches of one decode (inputs
 captured from the K3 route), K6 as its 15 outer stage-kernel launches, the
 whole decode through the K3 route, and
-K6 alone at each tail-table input of the 16x16 kernel at the outer shape
-(P=32, n=256). Each time is the mean of 20 launches
+K6 alone at each input i < 15 of the 16x16 kernel at the outer shape
+(P=32, n=256; and input 0 at one path, P=1); the `bch_sc` rows end with K6
+alone at each trellis input at bch_sc's hybrid shapes ((P, n) = (1, 16)
+and (1, 1)). Each time is the mean of 20 launches
 (2 for the mixed_scl32 rows) after 2 warm-up launches, repeated `--reps`
 times; `min_ms` is the least. It uses only entry points that earlier
 versions of the port have, so two checkouts can be compared in one call
@@ -48,6 +50,11 @@ Arikan capacity-8 body's shapes at ca_scl (K5: 128 threads, 8 blocks an
 SM; K1: 64 threads, 10), and prints the slots of the blocks on a few SMs
 and how the leader-warp rule (`cuda_scl.leader_warp`) spreads the leaders
 over the four sub-partitions, beside warp 0.
+
+`--k6-lanes` times K6 alone at each trellis input of the 16x16 kernel at
+every lane count (R = S / lanes states a lane), beside the count the rule
+(`cuda_stage.lanes_for`) picks, at mixed_scl32's outer shapes and bch_sc's
+hybrid shapes.
 
 `--sass-against DIR` prints which kernel instances of csrc/scl_decode.cu
 compile to the same SASS here and in the checkout DIR (cuobjdump of each
@@ -261,13 +268,62 @@ def _mixed_rows(dev, B: int):
             ("mixed_scl32", f"stage_down x{len(fns)}", P,
              lambda: [f(v) for f, v in fns]),
             ("mixed_scl32", "K3 route decode", P, decode)]
-    proc = cuda_stage.processor(spec.kernels[0])
     for i in range(15):
-        if proc.backend[i] == "table":
-            f = cuda_stage.build_down_kernel(spec.kernels[0], i, P, n1)
-            rows.append(("mixed_scl32", f"stage_down i={i}", P,
-                         lambda f=f: f(views[P])))
+        f = cuda_stage.build_down_kernel(spec.kernels[0], i, P, n1)
+        rows.append(("mixed_scl32", f"stage_down i={i}", P,
+                     lambda f=f: f(views[P])))
+    # the one outer launch at one path: input 0 (a trellis input)
+    f = cuda_stage.build_down_kernel(spec.kernels[0], 0, 1, n1)
+    rows.append(("mixed_scl32", "stage_down i=0 P=1", 1, lambda: f(views[1])))
     return rows
+
+
+def _bch_stage_rows(B: int, dev):
+    """K6 alone at each trellis input of the 16x16 kernel at bch_sc's
+    hybrid shapes, (P, n) = (1, 16) and (1, 1), B codewords."""
+    from polar_tpu_torch.ops import cuda_stage
+
+    spec = get_preset("bch_sc").spec
+    K = spec.kernels[0]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for n in (16, 1):
+        x = 2.0 * torch.randn((1, 16, n, B), generator=gen, device=dev)
+        for i in range(15):
+            if cuda_stage.big_kernel(K).states[i]:
+                f = cuda_stage.build_down_kernel(K, i, 1, n)
+                rows.append(("bch_sc", f"stage_down i={i} n={n}", 1,
+                             lambda f=f, x=x: f(x)))
+    return rows
+
+
+def k6_lanes(dev, card: str, reps: int) -> None:
+    """K6 alone at each trellis input of the 16x16 kernel at every lane
+    count (1 .. S: R = S / lanes states a lane), beside the count that
+    `cuda_stage.lanes_for` picks, at mixed_scl32's outer shapes (P = 1, 32;
+    n = 256; B = 256) and bch_sc's hybrid shapes ((1, 16) and (1, 1),
+    B = 8192)."""
+    from polar_tpu_torch.ops import cuda_stage
+
+    K = get_preset("bch_sc").spec.kernels[0]
+    bk = cuda_stage.big_kernel(K)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for paths, n, B in ((1, 256, 256), (32, 256, 256), (1, 16, 8192), (1, 1, 8192)):
+        x = 2.0 * torch.randn((paths, 16, n, B), generator=gen, device=dev)
+        for i in range(15):
+            S = int(bk.states[i])
+            if not S:
+                continue
+            f = cuda_stage.build_down_kernel(K, i, paths, n)
+            lanes, ms = 1, {}
+            while lanes <= S:
+                ms[lanes] = min(_ms(lambda: f.kernel_call(x, lanes))
+                                for _ in range(reps))
+                lanes *= 2
+            print(json.dumps({"kernel": "stage_down", "i": i, "states": S,
+                              "P": paths, "n": n, "batch": B,
+                              "rule_lanes": cuda_stage.lanes_for(bk, i, paths * n * B),
+                              "min_ms_by_lanes": ms, "card": card}), flush=True)
 
 
 def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
@@ -499,6 +555,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--slots", action="store_true",
                     help="the warp slots of the Arikan body's blocks and the "
                          "leader rule's sub-partitions instead")
+    ap.add_argument("--k6-lanes", action="store_true",
+                    help="K6 at every lane count of each trellis input instead")
     ap.add_argument("--sass-against", metavar="DIR", default=None,
                     help="compare scl_decode.cu's SASS with checkout DIR's instead")
     args = ap.parse_args(argv)
@@ -526,6 +584,9 @@ def main(argv=None) -> None:
     if args.sass_against:
         sass_against(args.sass_against)
         return
+    if args.k6_lanes:
+        k6_lanes(dev, card, args.reps)
+        return
     if args.split:
         split(B, dev, card, only)
         return
@@ -542,7 +603,8 @@ def main(argv=None) -> None:
                          ("scl_decode_traj", "scl_mc_traj", "scl_mc_counters"),
                          B, gen, dev)
             + _decode_rows("bch_sc", get_preset("bch_sc").spec, 8,
-                           ("scl_decode",), B, gen, dev)),
+                           ("scl_decode",), B, gen, dev)
+            + _bch_stage_rows(B, dev)),
         "golden_mixed": lambda: [
             row for L in range(4, 9)
             for row in _decode_rows("golden_mixed", load_golden(GOLDEN_MIXED)[0], L,

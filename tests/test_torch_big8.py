@@ -101,13 +101,14 @@ def test_max_maps_by_capacity():
 
 @pytest.mark.parametrize("L", range(1, 9))
 def test_general_smem_bytes_at_bch_sc(L):
-    """bch_sc's layout at capacity 8: the three stage tables (16-aligned),
+    """bch_sc's layout at capacity 8: the three stage tables (444 B each
+    with BigKernel's s1, 16-aligned),
     LLR buffers 17P floats, decisions 272P, trajectory 256P, span perms
     and suffix indices 2 * 106P, maps 34P; + 5N for the Monte-Carlo
     kernels, + P for the subtree kernel's net map."""
     spec = get_preset("bch_sc").spec
     tabs = -(-3 * ctypes.sizeof(cuda_scl.StageTab) // 16) * 16
-    assert tabs == 1296
+    assert ctypes.sizeof(cuda_scl.StageTab) == 444 and tabs == 1344
     base = tabs + 4 * 17 * L + 272 * L + 256 * L + 2 * 106 * L + 34 * L
     want = {"scl_decode": base, "scl_decode_traj": base,
             "scl_mc_traj": base + 5 * 256, "scl_mc_counters": base + 5 * 256,

@@ -334,7 +334,7 @@ def test_bch_sc_kernels_and_hybrid(cuda):
     assert cuda_stage.LAUNCHES["stage_down"] == before + 105
 
 
-@pytest.mark.parametrize("L", [1, 2, 4, 8])
+@pytest.mark.parametrize("L", range(1, 9))
 def test_bch_sc_kernels_on_tied_and_huge_llrs(cuda, L):
     """bch_sc's K1, K2 (integer LLRs: tied metrics and positions; LLRs at
     +-1e30 and 4e30) and K4, K5 (integer noise, noise at 1e32) == plain.
@@ -612,22 +612,69 @@ def test_stage_kernel_at_mixed_scl32_outer_shapes(cuda, paths):
             assert torch.equal(fn(x), fn.plain(x)), (paths, i)
 
 
+def _same_nan(got, ref):
+    nan = torch.isnan(ref)
+    return torch.equal(nan, torch.isnan(got)) and torch.equal(got[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256), (32, 256, 256), (1, 16, 8192),
+                                   (8, 16, 8192), (1, 1, 8192), (8, 1, 8192)])
+def test_stage_kernel_trellis_inputs(cuda, shape):
+    """K6 == plain at every trellis input i < 5 of the 16x16 kernel, at
+    mixed_scl32's outer shapes (P, n, B) = (1 | 32, 256, 256) and bch_sc's
+    hybrid shapes (1 | 8, 16 | 1, 8192), on Gaussian, integer, huge (+-1e30,
+    4e30) and +-inf inputs (one a (path, position, codeword): where both
+    hypotheses cost inf, inf - inf is NaN in both); at the rule's lanes and
+    at every other lane count of the input (R = S / lanes states a lane)."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops import cuda_stage
+    K = mixed_scl32().spec.kernels[0]
+    paths, n, B = shape
+    rng = np.random.default_rng(paths * n)
+    g = 2.0 * rng.standard_normal((paths, 16, n, B)).astype(np.float32)
+    inf = _huge(g, rng, False)
+    at = rng.integers(0, 16, (paths, n, B))
+    np.put_along_axis(inf, at[:, None], np.where(
+        rng.random((paths, 1, n, B)) < 0.5, np.inf, -np.inf), axis=1)
+    for v in (g, np.round(g), _huge(g, rng, False), inf):
+        x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        for i in range(5):
+            fn = cuda_stage.build_down_kernel(K, i, paths, n)
+            ref = fn.plain(x)
+            assert _same_nan(fn(x), ref), (shape, i)
+            if paths * n * B <= 1 << 17:
+                lanes = 1
+                while lanes <= 2 << i:
+                    assert _same_nan(fn.kernel_call(x, lanes), ref), (shape, i, lanes)
+                    lanes *= 2
+
+
 @pytest.mark.parametrize("i", [4, 5])
 def test_stage_kernel_past_32bit_thread_index(cuda, i):
     """K6 at mixed_scl32's outer shape with B = 33,024: P*n*B*lanes is over
-    2^32 threads (32 trellis lanes at i = 4, 16 table lanes at i = 5), so
-    the launcher splits it into launches of at most 2^31 threads, starting
-    mid-row. The elements around every split and the last ones == plain."""
+    2^32 threads (16 table lanes at i = 5; at the trellis input i = 4 the
+    rule gives one lane an element, and no shape that fits the card's
+    memory reaches 2^31 elements, so the trellis kernel runs its largest
+    group, 32 lanes, through the library), so the launcher splits it into
+    launches of at most 2^31 threads, starting mid-row. The elements around
+    every split and the last ones == plain; at i = 4 the rule's one launch
+    too."""
     from polar_tpu_torch.models.presets import mixed_scl32
     from polar_tpu_torch.ops import cuda_stage
     K = mixed_scl32().spec.kernels[0]
     P, n, B = 32, 256, 129 * 256
     E = P * n * B
+    fn = cuda_stage.build_down_kernel(K, i, P, n)
     lanes = cuda_stage.lanes_for(cuda_stage.big_kernel(K), i, E)
+    if i == 4:
+        assert lanes == 1 and E < 1 << 31
+        lanes = 32
     assert E * lanes > 1 << 32
     gen = torch.Generator(device=cuda).manual_seed(i)
     lam = torch.randn((P, 16, n, B), generator=gen, device=cuda).mul_(2.0)
-    out = cuda_stage.build_down_kernel(K, i, P, n)(lam)
+    out = fn.kernel_call(lam, lanes)
+    if i == 4:
+        assert torch.equal(fn(lam), out)
     one = cuda_stage.build_down_kernel(K, i, 1, n)
     starts = list(range(0, E, (1 << 31) // lanes)) + [E - 1]
     assert len(starts) > 3

@@ -146,7 +146,12 @@ def test_stage_kernel_tables_and_checks():
             S, cols = proc.syn[i]
             assert bk.states[i] == S <= 32
             assert list(bk.cols[i])[:16] == list(cols)
+            # one lane a state for a handful of elements; one thread an
+            # element (all S states in its registers) where they fill the
+            # card
             assert cuda_stage.lanes_for(bk, i, 10) == S
+            assert cuda_stage.lanes_for(bk, i, 1 << 24) == 1
+            assert bk.s1[i] != 0
         else:
             assert bk.states[i] == 0
             assert 1 <= cuda_stage.lanes_for(bk, i, 8192) <= 32
