@@ -18,9 +18,9 @@ import dataclasses
 import os
 import pathlib
 import signal
-import socket
 import subprocess
 import sys
+import uuid
 
 import torch
 import torch.distributed as dist
@@ -29,6 +29,7 @@ from polar_tpu_torch.utils.device import resolve_device
 
 # set by torchrun for every rank; LOCAL_RANK names the rank's card
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+RANK_THREADS = 1        # intra-op threads of each rank `launch` starts
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 
@@ -132,24 +133,26 @@ def sharded_mc_step(step_fn, mesh: BatchMesh):
     return step
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def launch(n: int, args: list[str], timeout: float) -> str:
     """Run `python -m torch.distributed.run --nproc-per-node n <args>` on
-    this host (a free port on 127.0.0.1) and return its standard output.
-    Raises RuntimeError if a rank exits non-zero (torchrun then stops the
-    others) or the run outlasts `timeout` seconds (every process it
-    started is killed)."""
+    this host and return its standard output. Raises RuntimeError if a
+    rank exits non-zero (torchrun then stops the others) or the run
+    outlasts `timeout` seconds (every process it started is killed).
+
+    The rendezvous is c10d's on 127.0.0.1 port 0, as torchrun's
+    --standalone: the agent's store binds a port the kernel picks and
+    hands it to the ranks, so no port number is chosen here and bound
+    later, when another process may have taken it. Each rank runs
+    RANK_THREADS intra-op threads (OMP_NUM_THREADS), whatever the caller's
+    environment: n ranks on one host share its cores."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    env["OMP_NUM_THREADS"] = str(RANK_THREADS)
     cmd = [sys.executable, "-m", "torch.distributed.run",
-           f"--nproc-per-node={n}", "--master-addr=127.0.0.1",
-           f"--master-port={_free_port()}", *args]
+           f"--nproc-per-node={n}", "--rdzv-backend=c10d",
+           "--rdzv-endpoint=127.0.0.1:0", f"--rdzv-id={uuid.uuid4()}",
+           "--local-addr=127.0.0.1", *args]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, start_new_session=True)
     try:

@@ -2,9 +2,11 @@
 (init_multihost, make_batch_mesh, sharded_mc_step) in two gloo ranks
 launched by torchrun, run_sweep over that mesh against the JAX package's
 run_sweep on a 2-device mesh of the virtual CPU devices (tests/conftest.py),
-the counter copies of run_sweep's fetch, `sweep_cli --profile`, the trace
-reader, and the entry points of polar_tpu_torch/entry.py."""
+two launches at once, the counter copies of run_sweep's fetch, `sweep_cli
+--profile`, the trace reader, and the entry points of
+polar_tpu_torch/entry.py."""
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -18,11 +20,16 @@ from polar_tpu_torch.construction.ga import construct_ga
 from polar_tpu_torch.models.polar import CodeSpec, CrcSpec
 from polar_tpu_torch.models.presets import Preset
 from polar_tpu_torch.ops.philox import MASK32, philox4x32_10_int, step_seed
-from polar_tpu_torch.parallel.mesh import launch, make_batch_mesh
+from polar_tpu_torch.parallel.mesh import (RANK_THREADS, launch,
+                                           make_batch_mesh)
 from polar_tpu_torch.sim import harness, sweep_cli
 from polar_tpu_torch.sim.kernel_times import trace_summary
 
-LAUNCH_TIMEOUT = 120        # seconds for a 2-rank run; ~8 s here
+# a guard against a hung 2-rank run, not a check of its speed: on an 8-core
+# host the fixture's run took 4.9-6.7 s beside 0 to 56 busy processes, and
+# its first test 7.6-8.5 s in three runs of the whole suite (-n 6); 300 s is
+# ~35x that, and the limit tests/test_multiprocess.py gives its two processes
+LAUNCH_TIMEOUT = 300
 SIGMA = 0.9
 
 # one rank of the 2-rank gloo run: the sharded step, then a sweep over the
@@ -62,6 +69,24 @@ again = run_sweep(preset, frames=1024, mesh=mesh, state_path=str(state),
     "recs": recs, "again": again, "saved": saved,
     "resaved": SweepState.load(state).__dict__ if mesh.rank == 0 else None,
 }))
+dist.destroy_process_group()
+"""
+
+
+# one rank of a 2-rank gloo run that only meets its peer: the sum of its
+# run's values (argv[2] + rank) over the group, the store's port and the
+# rank's threads, written to argv[1]/peer<rank>.json
+_PEER_WORKER = r"""
+import json, os, pathlib, sys
+import torch
+import torch.distributed as dist
+dist.init_process_group("gloo")
+rank = dist.get_rank()
+total = torch.tensor([int(sys.argv[2]) + rank])
+dist.all_reduce(total)
+(pathlib.Path(sys.argv[1]) / f"peer{rank}.json").write_text(json.dumps([
+    rank, dist.get_world_size(), int(total), os.environ["MASTER_PORT"],
+    torch.get_num_threads()]))
 dist.destroy_process_group()
 """
 
@@ -168,6 +193,36 @@ def test_mesh_sweep_records_match_jax(two_ranks, tmp_path):
     assert j_harness.SweepState.load(jpath).rng_step == res[0]["saved"]["rng_step"]
     assert recs[0]["fer"] > recs[1]["fer"]
     assert jrecs[0]["fer"] > jrecs[1]["fer"]
+
+
+def test_concurrent_launches_meet_their_own_peers(tmp_path, monkeypatch):
+    """Two 2-rank launches at once, from two threads, both return: each
+    run's ranks meet only each other (the sum of their own run's values)
+    on a store port of their own, at RANK_THREADS threads whatever the
+    caller's OMP_NUM_THREADS. A port picked, released and handed to
+    torchrun would fail here whenever the two runs drew the same one."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "4")
+    script = tmp_path / "peer.py"
+    script.write_text(_PEER_WORKER)
+    bases = (10, 20)
+    for base in bases:
+        (tmp_path / str(base)).mkdir()
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(launch, 2, [str(script), str(tmp_path / str(base)),
+                                        str(base)], LAUNCH_TIMEOUT)
+                for base in bases]
+        for run in runs:
+            run.result()
+    ports = []
+    for base in bases:
+        peers = [json.loads((tmp_path / str(base) / f"peer{r}.json").read_text())
+                 for r in (0, 1)]
+        assert [p[:3] for p in peers] == [[0, 2, 2 * base + 1],
+                                          [1, 2, 2 * base + 1]]
+        assert [p[4] for p in peers] == [RANK_THREADS] * 2
+        assert peers[0][3] == peers[1][3]
+        ports.append(peers[0][3])
+    assert ports[0] != ports[1]
 
 
 def test_single_device_mesh():
