@@ -54,6 +54,7 @@ from polar_tpu_torch.ops.schedule import build_schedule
 from polar_tpu_torch.ops.scl import (DecodeResult, build_plain_scl_decoder,
                                      build_plain_subtree, check_supported,
                                      scl_epilogue, trajectory_spans)
+from polar_tpu_torch.utils.spans import span
 
 SOURCE = cuda_build.CSRC / "scl_decode.cu"
 
@@ -587,8 +588,10 @@ class SclDecoder:
         return trajectory_spans(self.spec, self.P)
 
     def __call__(self, llrs) -> DecodeResult:
-        llrs = torch.as_tensor(llrs, dtype=torch.float32, device=self.device)
-        return self.kernel(llrs)
+        with span("scl.decode"):
+            llrs = torch.as_tensor(llrs, dtype=torch.float32,
+                                   device=self.device)
+            return self.kernel(llrs)
 
     def kernel(self, llrs: torch.Tensor) -> DecodeResult:
         """The wrapper: a CUDA tensor is decoded by the kernels, a CPU

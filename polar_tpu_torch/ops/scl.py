@@ -42,6 +42,7 @@ from polar_tpu_torch.ops.program import (build_program, staged_inverse_kernels,
                                          subtree_items, subtree_spec)
 from polar_tpu_torch.ops.schedule import build_schedule
 from polar_tpu_torch.utils.device import resolve_device
+from polar_tpu_torch.utils.spans import span
 
 BIG = 1e30   # metric penalty of a CRC failure; initial metric of paths 1..P-1
 MAX_LIST = 32
@@ -570,6 +571,16 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
                 cores[item[2]] = SubtreeKernel(subtree_spec(spec, item[2]), P)
         items = [item if item[0] == "op" else
                  ("sub", item[1], cores[item[2]]) for item in items]
+    # the walk as it is traced: each child alone ("walk.child"), each run of
+    # consecutive ops between two children together ("walk.outer")
+    runs: list[tuple] = []
+    for item in items:
+        if item[0] == "sub":
+            runs.append(item)
+        elif runs and runs[-1][0] == "op":
+            runs[-1][1].append(steps[item[1]])
+        else:
+            runs.append(("op", [steps[item[1]]]))
 
     def sub(st: _State, t0: int, core) -> None:
         """One child through its core_sub (polar_tpu/ops/scl.py
@@ -588,15 +599,19 @@ def build_plain_scl_decoder(spec: CodeSpec, list_size: int,
             raise ValueError(f"llrs must be [B, {spec.N}], got "
                              f"{tuple(llrs.shape)}")
         st = _State(spec, P, llrs, llr_dtype=llr_dtype)
-        for item in items:
-            if item[0] == "op":
-                fn, level, t0 = steps[item[1]]
-                fn(st, level, t0)
+        for run in runs:
+            if run[0] == "op":
+                with span("walk.outer"):
+                    for fn, level, t0 in run[1]:
+                        fn(st, level, t0)
             else:
-                sub(st, item[1], item[2])
-        if trajectory:
-            return (st.traj_bit, torch.stack([e[2] for e in st.traj]), st.pm)
-        return scl_epilogue(spec, P, st.traj, st.traj_bit, st.pm)
+                with span("walk.child"):
+                    sub(st, run[1], run[2])
+        with span("walk.epilogue"):
+            if trajectory:
+                return (st.traj_bit, torch.stack([e[2] for e in st.traj]),
+                        st.pm)
+            return scl_epilogue(spec, P, st.traj, st.traj_bit, st.pm)
 
     return decode
 
@@ -652,8 +667,9 @@ class ProgramDecoder:
         self.walk = build_plain_scl_decoder(spec, list_size, **options)
 
     def __call__(self, llrs) -> DecodeResult:
-        return self.walk(torch.as_tensor(llrs, dtype=torch.float32,
-                                         device=self.device))
+        with span("scl.decode"):
+            return self.walk(torch.as_tensor(llrs, dtype=torch.float32,
+                                             device=self.device))
 
 
 def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",

@@ -21,6 +21,10 @@ the caller asks for the CPU) or on a mesh of cards, one process a card
   (per-SNR frame/error counters and the step count) persists to JSON
   after every fetch; records stream to stdout and JSONL, with the JAX
   package's keys.
+- Under a torch.profiler profile, host spans (utils/spans.py) mark a
+  sweep's set-up (`run_sweep.setup`) and each call's dispatch, fetch,
+  state save and draw (`run_sweep.*`, `mc_step.draw`); untraced they
+  cost a flag check.
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ import time
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from polar_tpu_torch.models.polar import CodeSpec
 from polar_tpu_torch.models.presets import Preset
@@ -43,6 +46,7 @@ from polar_tpu_torch.ops.scl import (BIG_STAGE_BACKENDS, SUBTREE_BACKENDS,
 from polar_tpu_torch.parallel.mesh import make_batch_mesh, sharded_mc_step
 from polar_tpu_torch.sim.channel import ebn0_to_sigma
 from polar_tpu_torch.utils.device import resolve_device
+from polar_tpu_torch.utils.spans import span
 
 BACKENDS = ("torch", "fused")
 
@@ -83,7 +87,8 @@ def make_mc_step(spec: CodeSpec, list_size: int, steps_per_call: int = 1,
                                    subtree_backend=subtree_backend)
 
         def one(key, sigma, batch):
-            u_true, llr = mc_draw(spec, key, sigma, batch, dev)
+            with span("mc_step.draw"):
+                u_true, llr = mc_draw(spec, key, sigma, batch, dev)
             cnt = count_errors(spec, decode(llr).u, u_true)
             return cnt[0].sum(), cnt[1].sum()
     else:
@@ -211,38 +216,39 @@ def run_sweep(preset: Preset, frames: int | None = None,
     state file (and sends it to the others), saves it, writes JSONL and
     prints.
     """
-    mesh = mesh or make_batch_mesh(device=device)
-    n_dev = mesh.size
-    frames = frames or preset.frames
-    pdb = per_device_batch or max(1, preset.batch // n_dev)
-    global_batch = pdb * n_dev
-    raw_step = make_mc_step(preset.spec, preset.list_size,
-                            steps_per_call=steps_per_call, backend=backend,
-                            device=mesh.device,
-                            big_stage_backend=big_stage_backend,
-                            subtree_backend=subtree_backend)
-    step = sharded_mc_step(raw_step, mesh)
-    lead = mesh.rank == 0
+    with span("run_sweep.setup"):
+        mesh = mesh or make_batch_mesh(device=device)
+        n_dev = mesh.size
+        frames = frames or preset.frames
+        pdb = per_device_batch or max(1, preset.batch // n_dev)
+        global_batch = pdb * n_dev
+        raw_step = make_mc_step(preset.spec, preset.list_size,
+                                steps_per_call=steps_per_call,
+                                backend=backend, device=mesh.device,
+                                big_stage_backend=big_stage_backend,
+                                subtree_backend=subtree_backend)
+        step = sharded_mc_step(raw_step, mesh)
+        lead = mesh.rank == 0
 
-    state = None
-    spath = pathlib.Path(state_path) if state_path else None
-    if lead and spath and spath.exists():
-        state = SweepState.load(spath)
-        if state.preset != preset.name or state.snr_db != [float(s) for s in
-                                                          preset.ebn0_grid]:
-            state = None
-    if mesh.group is not None:
-        box = [state]
-        dist.broadcast_object_list(box, src=0, group=mesh.group,
-                                   device=mesh.device)
-        state = box[0]
-    if state is None:
-        state = SweepState.fresh(preset.name, preset.ebn0_grid, seed)
+        state = None
+        spath = pathlib.Path(state_path) if state_path else None
+        if lead and spath and spath.exists():
+            state = SweepState.load(spath)
+            if state.preset != preset.name or state.snr_db != [
+                    float(s) for s in preset.ebn0_grid]:
+                state = None
+        if mesh.group is not None:
+            box = [state]
+            dist.broadcast_object_list(box, src=0, group=mesh.group,
+                                       device=mesh.device)
+            state = box[0]
+        if state is None:
+            state = SweepState.fresh(preset.name, preset.ebn0_grid, seed)
 
-    records = []
-    jfile = open(jsonl_path, "a") if jsonl_path and lead else None
-    depth = max(1, pipeline_depth)
-    copies = CounterCopies(depth, mesh.device)
+        records = []
+        jfile = open(jsonl_path, "a") if jsonl_path and lead else None
+        depth = max(1, pipeline_depth)
+        copies = CounterCopies(depth, mesh.device)
     for si, snr in enumerate(state.snr_db):
         sigma = float(ebn0_to_sigma(snr, preset.spec.rate))
         t0 = time.time()
@@ -257,7 +263,7 @@ def run_sweep(preset: Preset, frames: int | None = None,
 
         def fetch_one():
             nonlocal t_frames, t_rate, f_rate
-            with record_function("run_sweep.fetch"):
+            with span("run_sweep.fetch"):
                 call = pending.pop(0)
                 fe, be = call.counts()
                 state.rng_step[si] += 1
@@ -269,7 +275,8 @@ def run_sweep(preset: Preset, frames: int | None = None,
                     t_rate = time.time()
                     f_rate = t_frames
                 if spath and lead:
-                    state.save(spath)
+                    with span("run_sweep.save"):
+                        state.save(spath)
 
         while True:
             done = state.frames[si] + len(pending) * frames_per_call
@@ -278,7 +285,7 @@ def run_sweep(preset: Preset, frames: int | None = None,
                      state.frames[si] >= frames // 10)
             if done >= frames or early:
                 break
-            with record_function("run_sweep.dispatch"):
+            with span("run_sweep.dispatch"):
                 out = step(state.seed, si, state.rng_step[si] + len(pending),
                            sigma, pdb)
                 pending.append(copies.start(out["frames"], out["counts"]))
