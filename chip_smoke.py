@@ -790,8 +790,9 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
     plain = build_plain_scl_decoder(mspec, P)
 
     def captured(llr):
-        """The route's decode of llr, and the (core, lam1, pm) of each of
-        its subtree-kernel calls."""
+        """The route's eager walk of llr (a replayed graph calls no
+        Python), and the (core, lam1, pm) of each of its subtree-kernel
+        calls."""
         calls = []
         call = SubtreeKernel.__call__
 
@@ -800,7 +801,7 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
             return call(core, lam1, pm)
         SubtreeKernel.__call__ = spy
         try:
-            out = route(llr)
+            out = route.walk(llr)
         finally:
             SubtreeKernel.__call__ = call
         return out, calls
@@ -850,7 +851,11 @@ def mixed_phases(dev, card, rng, check, err, main_path, rows, main_launches):
         raise SystemExit(f"scl_subtree holds {sorted(occupancy)} blocks an SM, not 2")
     out_h = hybrid(llr)
     out_p = plain(llr)
-    for other, name in ((out_h, "the hybrid"), (out_p, "the plain route")):
+    # the route's own calls: the first walks and captures, the second replays
+    out_first, out_replay = route(llr), route(llr)
+    for other, name in ((out_h, "the hybrid"), (out_p, "the plain route"),
+                        (out_first, "the route's first call"),
+                        (out_replay, "the route's replay")):
         same, d = fields_equal(out_route, other)
         if not same:
             raise SystemExit(f"mixed_scl32: the K3 route != {name} (max abs err {d})")

@@ -31,7 +31,9 @@ _TERM_BUDGET = 1 << 27   # elements of the l tree terms of one chunk
 def tree_corr(lam_adj: torch.Tensor, t) -> torch.Tensor:
     """Correlations of lam_adj [..., l, n, B] against table columns
     t [l, C] -> [..., C, n, B], summed over l as the fixed pairwise tree
-    ((0+1)+(2+3))+... (the JAX package's and the CUDA kernels' order)."""
+    ((0+1)+(2+3))+... (the JAX package's and the CUDA kernels' order).
+    t is a host array or a tensor; one on lam_adj's device in its dtype
+    is used as it is."""
     t = torch.as_tensor(t, dtype=lam_adj.dtype, device=lam_adj.device)
     l = t.shape[0]
     pre = (1,) * (lam_adj.ndim - 3)
@@ -88,9 +90,11 @@ class StageProcessor:
         self.f_mode = f_mode
         self.stage_kernel = stage_kernel and self.l > 2 and f_mode == "minsum"
         self.row_signs = 1.0 - 2.0 * self.kernel.astype(np.float32)
+        self.rows = self.kernel.astype(np.float32)[:, :, None]   # [l, l, 1]
         # column k of K as a bit mask over rows j (coset folds, re-encode)
         self.kcol = [int((self.kernel[:, k].astype(np.int64)
                           << np.arange(self.l)).sum()) for k in range(self.l)]
+        self._on_device: dict = {}
         if self.l > 2 and f_mode == "exact":
             # exact marginals need every coset: the table for every input
             self.backend = ["table"] * self.l
@@ -117,6 +121,18 @@ class StageProcessor:
                         if self.backend[i] == "trellis" else None
                         for i in range(self.l)]
 
+    def on_device(self, name: str, i: int, device: torch.device,
+                  dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Host table `name` (rows, row_signs, tables) at input i as a
+        tensor on `device`, uploaded once a device and dtype: a walk on the
+        card then copies nothing from the host (a pageable copy syncs the
+        stream, and a CUDA graph capture cannot hold it)."""
+        key = (name, i, device, dtype)
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(getattr(self, name)[i],
+                                                   dtype=dtype, device=device)
+        return self._on_device[key]
+
     # ---- coset handling -------------------------------------------------
 
     def coset_signs(self, dec_g: torch.Tensor, i: int) -> torch.Tensor:
@@ -142,7 +158,7 @@ class StageProcessor:
 
     def _maxcorr(self, lam_adj: torch.Tensor, i: int) -> torch.Tensor:
         """max over tail codewords of the correlation; lam_adj [.., l, n, B]."""
-        t = torch.as_tensor(self.tables[i], device=lam_adj.device)
+        t = self.on_device("tables", i, lam_adj.device)
         out = None
         for c0, c1 in _chunks(lam_adj, t.shape[1]):
             mx = torch.amax(tree_corr(lam_adj, t[:, c0:c1]), dim=-3)
@@ -152,7 +168,7 @@ class StageProcessor:
     def _lsecorr(self, lam_adj: torch.Tensor, i: int) -> torch.Tensor:
         """logsumexp over tail codewords of correlation / 2 (the exact
         marginal's counterpart of _maxcorr); lam_adj [.., l, n, B]."""
-        t = torch.as_tensor(self.tables[i], device=lam_adj.device)
+        t = self.on_device("tables", i, lam_adj.device)
         la = lam_adj.to(torch.float32)
         out = None
         for c0, c1 in _chunks(la, t.shape[1]):
@@ -170,7 +186,7 @@ class StageProcessor:
                         else f_minsum(a, b))
             return a + b  # g with u0 absorbed into the coset sign of a
         if i == self.l - 1:  # a single tail codeword: correlation with row i
-            row = self.kernel[i].astype(np.float32).reshape(self.l, 1)
+            row = self.on_device("rows", i, lam_adj.device, lam_adj.dtype)
             return tree_corr(lam_adj, row)[..., 0, :, :]
         if self.stage_kernel:
             from polar_tpu_torch.ops.cuda_stage import build_down_kernel
@@ -184,10 +200,8 @@ class StageProcessor:
     def plain_llr(self, i: int, lam_adj: torch.Tensor) -> torch.Tensor:
         """The trellis/table input-i LLR (l > 2, i < l-1) in plain PyTorch:
         the CUDA stage kernel's plain version."""
-        both = torch.stack(
-            [lam_adj,
-             lam_adj * torch.as_tensor(self.row_signs[i], device=lam_adj.device
-                                       )[None, :, None, None]])
+        signs = self.on_device("row_signs", i, lam_adj.device)
+        both = torch.stack([lam_adj, lam_adj * signs[None, :, None, None]])
         if self.f_mode == "exact":
             lse = self._lsecorr(both, i)   # [2, P, n, B]
             return (lse[0] - lse[1]).to(lam_adj.dtype)

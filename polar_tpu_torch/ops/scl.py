@@ -31,6 +31,8 @@ Conventions the CUDA kernel repeats exactly:
 """
 from __future__ import annotations
 
+import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -200,8 +202,25 @@ def scl_epilogue(spec: CodeSpec, P: int, entries, traj_bit, pm) -> DecodeResult:
             bits, 1, s[None].expand(bits.shape))
         s = perm if s is None else torch.gather(perm, 0, s)
     u_all = torch.cat(pieces, dim=0)                               # [N, P, B]
-    pos = torch.as_tensor(spec.info_positions, device=u_all.device)
+    pos = epilogue_tables(spec, u_all.device)[0]
     return finalize(spec, P, u_all, u_all[pos], pm)
+
+
+@functools.lru_cache(maxsize=None)
+def epilogue_tables(spec: CodeSpec, device: torch.device):
+    """(payload rows [K + n_crc] int64, CRC generator [K, n_crc] and offset
+    [n_crc] float64, or None without a CRC) on `device`, uploaded once: a
+    walk on the card then copies nothing from the host (a pageable copy
+    syncs the stream, and a CUDA graph capture cannot hold it)."""
+    pos = torch.as_tensor(spec.info_positions, device=device)
+    if spec.crc is None:
+        return pos, None, None
+    k = spec.K
+    return (pos,
+            torch.as_tensor(spec.crc.generator_matrix(k), device=device,
+                            dtype=torch.float64),
+            torch.as_tensor(spec.crc.offset_bits(k), device=device,
+                            dtype=torch.float64))
 
 
 def finalize(spec: CodeSpec, P: int, u_all, payload_all, pm) -> DecodeResult:
@@ -211,10 +230,7 @@ def finalize(spec: CodeSpec, P: int, u_all, payload_all, pm) -> DecodeResult:
     dev = pm.device
     if spec.crc is not None:
         k = spec.K
-        g = torch.as_tensor(spec.crc.generator_matrix(k), device=dev,
-                            dtype=torch.float64)
-        off = torch.as_tensor(spec.crc.offset_bits(k), device=dev,
-                              dtype=torch.float64)
+        _, g, off = epilogue_tables(spec, dev)
         bits = torch.remainder(
             torch.einsum("kpb,kw->wpb", payload_all[:k].to(torch.float64), g)
             + off[:, None, None], 2.0)
@@ -653,23 +669,116 @@ def build_plain_subtree(sub_spec: CodeSpec, list_size: int):
     return core_sub
 
 
+# The CUDA graphs of the walk (`ProgramDecoder` on a CUDA device) made and
+# replayed in this process.
+GRAPHS = {"captures": 0, "replays": 0}
+
+
+class _Capture(NamedTuple):
+    """One captured walk: the graph, its input and output buffers, and the
+    launches of the port's kernels it holds, as (counter, name, count)."""
+    graph: object             # torch.cuda.CUDAGraph
+    llrs: torch.Tensor        # [B, N] float32, the input the graph reads
+    out: tuple                # what the walk returned at capture
+    launches: list
+
+
+class _Walk:
+    """The walk of one (spec, list size, route options), built once a
+    process, and its CUDA graphs, one a batch size and device.
+
+    The op program is fixed for a given batch: every shape is known on the
+    host, the host tables are uploaded once (`StageProcessor.on_device`,
+    `epilogue_tables`, the kernels' own), forks are sorts and gathers, and
+    nothing is read back. So on the card the walk is captured once and
+    each later decode is one graph launch. The walk, the graph and the
+    device tables the graph's kernels point to are held here for the
+    process: a decoder built again (every `run_sweep` call builds one)
+    replays the graph its predecessor captured."""
+
+    def __init__(self, walk):
+        self.walk = walk
+        self.graphs: dict = {}
+        self.lock = threading.Lock()
+
+    def __call__(self, llrs: torch.Tensor):
+        key = (llrs.shape, llrs.device)
+        with self.lock:
+            cap = self.graphs.get(key)
+            if cap is None:
+                # eager first: lazy library loads, table uploads and the
+                # kernels' attributes happen outside the capture
+                out = self.walk(llrs)
+                self.graphs[key] = self._capture(llrs)
+                return out
+            with span("walk.replay"), torch.cuda.device(llrs.device):
+                cap.llrs.copy_(llrs)
+                cap.graph.replay()
+                GRAPHS["replays"] += 1
+                for counter, name, n in cap.launches:
+                    counter[name] += n
+                # fresh tensors: the next replay overwrites the graph's own
+                clones = [t.clone() for t in cap.out]
+        if isinstance(cap.out, DecodeResult):
+            return DecodeResult(*clones)
+        return tuple(clones)
+
+    def _capture(self, llrs: torch.Tensor) -> _Capture:
+        from polar_tpu_torch.ops import cuda_scl, cuda_stage
+
+        counters = (cuda_scl.LAUNCHES, cuda_stage.LAUNCHES)
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        static = llrs.clone(memory_format=torch.contiguous_format)
+        with torch.cuda.device(llrs.device):
+            # thread_local: a capture in one thread does not forbid
+            # another thread's work on its own device
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(llrs.device),
+                                  capture_error_mode="thread_local"):
+                out = self.walk(static)
+        # the capture launched nothing: its launches count at each replay
+        launches = [(c, name, c[name] - b[name])
+                    for c, b in zip(counters, before) for name in c
+                    if c[name] != b[name]]
+        for c, b in zip(counters, before):
+            c.update(b)
+        GRAPHS["captures"] += 1
+        return _Capture(graph, static, out, launches)
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_walk(spec: CodeSpec, list_size: int, options: tuple) -> _Walk:
+    return _Walk(build_plain_scl_decoder(spec, list_size, **dict(options)))
+
+
 class ProgramDecoder:
     """decode(llrs [B, N]) -> DecodeResult through `build_plain_scl_decoder`
     on `device`: the op program in PyTorch tensor ops, with the stage
     kernel for the l > 2 DOWN ops (`stage_kernel`) and the subtree kernel
     for depth-1 children (`subtree`) on a CUDA device. `route` names the
-    route, for a reader of the decoder."""
+    route, for a reader of the decoder.
+
+    On a CUDA device the first decode of a batch size walks eagerly and
+    captures the walk as a CUDA graph; every later one (of any decoder of
+    the same spec, list size and options, in this process) replays it and
+    returns fresh tensors. On the CPU it walks eagerly. `walk` is the
+    eager walk on either."""
 
     def __init__(self, spec: CodeSpec, list_size: int, device: torch.device,
                  route: str, **options):
         self.device = device
         self.route = route
-        self.walk = build_plain_scl_decoder(spec, list_size, **options)
+        self._walk = _shared_walk(spec, int(list_size),
+                                  tuple(sorted(options.items())))
+        self.walk = self._walk.walk
 
     def __call__(self, llrs) -> DecodeResult:
         with span("scl.decode"):
-            return self.walk(torch.as_tensor(llrs, dtype=torch.float32,
-                                             device=self.device))
+            llrs = torch.as_tensor(llrs, dtype=torch.float32,
+                                   device=self.device)
+            if llrs.device.type == "cuda":
+                return self._walk(llrs)
+            return self.walk(llrs)
 
 
 def build_scl_decoder(spec: CodeSpec, list_size: int, device="cuda",

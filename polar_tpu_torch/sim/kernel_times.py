@@ -233,7 +233,7 @@ def _mixed_capture(dev, B: int):
         return call(core, lam1, pm)
     SubtreeKernel.__call__ = spy
     try:
-        route(llr)
+        route.walk(llr)     # eager: a replayed graph calls no Python
     finally:
         SubtreeKernel.__call__ = call
     # the outer stage-1 DOWN ops with i < 15 (a DOWN_FRESH at one path)

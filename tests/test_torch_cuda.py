@@ -725,6 +725,126 @@ def test_mixed_scl32_route_matches_plain_route(cuda):
     _equal(out, build_plain_scl_decoder(spec, 32)(llr))
 
 
+# ---- the op program's walk as one CUDA graph (ops/scl.py ProgramDecoder) ----
+
+def _replayed(dec, llr, launches):
+    """dec(llr) on a batch size dec has seen: one replay, no capture, and
+    `launches` {kernel: count} added to LAUNCHES. Returns the result."""
+    from polar_tpu_torch.ops.scl import GRAPHS
+    graphs = dict(GRAPHS)
+    before = {k: _launches(k) for k in launches}
+    out = dec(llr)
+    assert GRAPHS == {"captures": graphs["captures"],
+                      "replays": graphs["replays"] + 1}
+    assert {k: _launches(k) - before[k] for k in launches} == launches
+    return out
+
+
+@pytest.mark.parametrize("seed", [(20, 1), (20, 2)])
+def test_mixed_scl32_replay_equals_walk(cuda, seed):
+    """mixed_scl32 at B=256 and 1.25 dB through the K3 route: a replayed
+    decode == the eager walk (`ProgramDecoder.walk`), u, payload, crc_ok
+    and pm bit for bit; a replay counts its 13 K3 and 15 K6 launches."""
+    from polar_tpu_torch.models.presets import mixed_scl32
+    from polar_tpu_torch.ops.mc import mc_draw
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    spec = mixed_scl32().spec
+    sigma = float(ebn0_to_sigma(1.25, spec.rate))
+    dec = build_scl_decoder(spec, 32, device=cuda, subtree_backend="pallas",
+                            big_stage_backend="pallas")
+    dec(mc_draw(spec, (seed[0], seed[1] + 100), sigma, 256, cuda)[1])
+    _, llr = mc_draw(spec, seed, sigma, 256, cuda)
+    out = _replayed(dec, llr, {"scl_subtree": 13, "stage_down": 15})
+    _equal(out, dec.walk(llr))
+
+
+def test_bch_sc_hybrid_replay_equals_walk(cuda):
+    """The bch_sc hybrid (K6 for each of its 105 trellis/table DOWNs) at
+    B=96: a replay == the eager walk and the decode kernel."""
+    from polar_tpu_torch.models.presets import bch_sc
+    spec = bch_sc().spec
+    gen = torch.Generator(device=cuda).manual_seed(96)
+    x0, x = (2.0 * torch.randn((96, 256), generator=gen, device=cuda) + 1.0
+             for _ in range(2))
+    dec = build_scl_decoder(spec, 1, device=cuda, big_stage_backend="pallas")
+    dec(x0)
+    out = _replayed(dec, x, {"stage_down": 105})
+    _equal(out, dec.walk(x))
+    _equal(out, build_scl_decoder(spec, 1, device=cuda)(x))
+
+
+def test_walk_graph_per_batch_and_fresh_results(cuda):
+    """The first decode of a batch size walks eagerly and captures; later
+    decodes, by this decoder or another of the same key, replay. A result
+    held from one decode is unchanged by the next; a second batch size
+    captures a second graph; the trajectory form returns fresh tensors
+    too. Every result == the eager walk's."""
+    from polar_tpu_torch.ops.program import build_program, subtree_items
+    from polar_tpu_torch.ops.scl import GRAPHS, ProgramDecoder
+    spec = _mixed((16, 2, 2), 20, CrcSpec(8, 0x07, 0), seed=7)
+    n_subs = sum(it[0] == "sub" for it in subtree_items(build_program(spec, scl=True),
+                                                         spec))
+    kw = dict(device=cuda, subtree_backend="pallas", big_stage_backend="pallas")
+    dec = build_scl_decoder(spec, 5, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs = [2.0 * torch.randn((40, spec.N), generator=gen, device=cuda)
+          for _ in range(3)]
+    graphs = dict(GRAPHS)
+    first = dec(xs[0])
+    assert GRAPHS == {"captures": graphs["captures"] + 1,
+                      "replays": graphs["replays"]}
+    launches = {"scl_subtree": n_subs}
+    held = _replayed(dec, xs[1], launches)
+    kept = [t.clone() for t in held]
+    other = _replayed(build_scl_decoder(spec, 5, **kw), xs[2], launches)
+    for a, b in zip(held, kept):
+        assert torch.equal(a, b)
+    for x, out in zip(xs, (first, held, other)):
+        _equal(out, dec.walk(x))
+    small = xs[0][:24]
+    graphs = dict(GRAPHS)
+    dec(small)
+    assert GRAPHS["captures"] == graphs["captures"] + 1
+    _equal(_replayed(dec, small, launches), dec.walk(small))
+    traj = ProgramDecoder(spec, 5, cuda, "trajectory", trajectory=True,
+                          subtree=True, stage_kernel=True)
+    traj(xs[0])
+    held = _replayed(traj, xs[1], launches)
+    kept = [t.clone() for t in held]
+    _same(traj(xs[2]), traj.walk(xs[2]))
+    _same(held, kept)
+    _same(held, traj.walk(xs[1]))
+
+
+def test_walk_graph_shared_by_threads(cuda):
+    """Eight threads decode their own LLRs through one captured graph, six
+    times each, with a short switch interval: every result == the eager
+    walk's (a copy-in, replay and clone-out of one thread never interleave
+    with another's)."""
+    import concurrent.futures
+    import sys
+    spec = _mixed((2, 16, 2), 14, CrcSpec(8, 0x07, 0), seed=11)
+    dec = build_scl_decoder(spec, 3, device=cuda, subtree_backend="pallas",
+                            big_stage_backend="pallas")
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    xs = [2.0 * torch.randn((33, spec.N), generator=gen, device=cuda)
+          for _ in range(8)]
+    refs = [dec.walk(x) for x in xs]
+    dec(xs[0])
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futures = [pool.submit(lambda x: [dec(x) for _ in range(6)], x)
+                       for x in xs]
+            outs = [f.result(timeout=120) for f in futures]
+    finally:
+        sys.setswitchinterval(interval)
+    for ref, got in zip(refs, outs):
+        for out in got:
+            _equal(out, ref)
+
+
 # ---- the Arikan capacity-8 body (K1, K2, K4, K5 of Arikan specs, P <= 8) ----
 
 def _all_four(spec, L, cuda, llr, noise, sigma):

@@ -114,6 +114,31 @@ def test_tree_corr_and_tail_table_equal():
     assert float(t_kp.tree_corr(x, np.ones((4, 1), np.float32))) == 2.0
 
 
+@pytest.mark.parametrize("l,f_mode", [(4, "minsum"), (16, "minsum"),
+                                      (16, "exact")])
+def test_device_tables_are_the_host_arrays(l, f_mode):
+    """StageProcessor.on_device: each host table the DOWN ops read (K's
+    rows, the row signs, the tail tables) with its values and dtype,
+    uploaded once a device and dtype; K's last row as a cached tensor and
+    as a numpy column give tree_corr the same floats."""
+    tp = t_kp.StageProcessor(build_bch_kernel(l), f_mode=f_mode)
+    cpu = torch.device("cpu")
+    for i in range(l):
+        for name in ("rows", "row_signs", "tables"):
+            host = getattr(tp, name)[i]
+            if host is None:
+                continue
+            for dtype in (None, torch.bfloat16):
+                t = tp.on_device(name, i, cpu, dtype)
+                ref = torch.as_tensor(np.array(host), dtype=dtype)
+                assert t.dtype == ref.dtype and torch.equal(t, ref), (name, i)
+                assert tp.on_device(name, i, cpu, dtype) is t
+    lam = torch.as_tensor(_lam(9, l=l))
+    row = tp.kernel[l - 1].astype(np.float32).reshape(l, 1)
+    assert torch.equal(t_kp.tree_corr(lam, tp.on_device("rows", l - 1, cpu)),
+                       t_kp.tree_corr(lam, row))
+
+
 def test_chunked_max_equals_one_chunk(monkeypatch):
     """The table max in column chunks of any size gives the same floats."""
     tp = t_kp.StageProcessor(K16)

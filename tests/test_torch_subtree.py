@@ -56,15 +56,21 @@ def _equal(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("big_stage", ["xla", "pallas"])
 @pytest.mark.parametrize("factors,K,L,crc", SPECS)
-def test_subtree_route_matches_jax(factors, K, L, crc):
+def test_subtree_route_matches_jax(factors, K, L, crc, big_stage):
+    """With either stage route; on the CPU the decoder walks eagerly (no
+    CUDA graph) with its host tables uploaded once."""
     jspec, jdec = _jax(factors, K, L, crc)
     spec = spec_from_reference(jspec)
     x = _llrs(spec.N, L)
     ref = jdec(jnp.asarray(x))
     before = dict(cuda_scl.LAUNCHES)
+    graphs = dict(t_scl.GRAPHS)
     out = t_scl.build_scl_decoder(spec, L, device="cpu",
-                                  subtree_backend="pallas")(x)
+                                  subtree_backend="pallas",
+                                  big_stage_backend=big_stage)(x)
+    assert t_scl.GRAPHS == graphs == {"captures": 0, "replays": 0}
     for f in ("u", "payload", "crc_ok"):
         assert np.array_equal(getattr(out, f).numpy(),
                               np.asarray(getattr(ref, f))), f
