@@ -452,15 +452,18 @@ class SclKernels:
         self._dev_tables: dict = {}
 
     def device_tables(self, device: torch.device) -> dict:
-        if self.tables is None:
-            self.tables = build_tables(self.spec, self.P)
         key = str(device)
         if key not in self._dev_tables:
-            t = dict(self.tables, positions=self.spec.info_positions)
-            self._dev_tables[key] = {
-                name: torch.as_tensor(t[name], device=device).contiguous()
-                for name in ("ops", "qrow", "pidx", "gmask", "st",
-                             "positions")}
+            # the host build (once an instance) and the upload (once a
+            # device); a cached call opens no span
+            with span("scl.tables"):
+                if self.tables is None:
+                    self.tables = build_tables(self.spec, self.P)
+                t = dict(self.tables, positions=self.spec.info_positions)
+                self._dev_tables[key] = {
+                    name: torch.as_tensor(t[name], device=device).contiguous()
+                    for name in ("ops", "qrow", "pidx", "gmask", "st",
+                                 "positions")}
         return self._dev_tables[key]
 
     def _args(self, batch: int, device: torch.device, **fields) -> SclArgs:
