@@ -15,7 +15,7 @@ scl_decode.cu, one launch a depth-1 child. Arikan specs at list sizes
 scl_decode.cu (64 or 128 threads a codeword by a rule of its layout,
 stage 1 read through the channel row, packed bits, forks in registers),
 every other spec through its general body (at L <= 8 a warp a path:
-bch_sc at L=1 one warp a codeword).
+bch_sc's K2, K4 and K5 at L=1 two codewords a warp, a half-warp each).
 Phases (any failure exits non-zero):
 
 1. device: name, count, nvidia-smi name and power limit;
@@ -24,7 +24,8 @@ Phases (any failure exits non-zero):
    registers and spills of each instance (any instance that spills fails:
    the general body's and the Arikan body's), threads a block of the
    Arikan instances at ca_scl and arikan_sc, and at bch_sc for L = 1..8
-   threads and blocks an SM (occupancy API), at ca_scl blocks an SM;
+   threads, codewords a block and blocks an SM (occupancy API), at ca_scl
+   blocks an SM;
 3. golden replay: results/golden_ca_scl_b256.npz (256 frames recorded
    from the independent C++ decoder) through scl_decode, 0 mismatches;
 4. scl_decode == plain PyTorch version on the card, bit for bit (u,
@@ -1810,10 +1811,11 @@ def main() -> int:
     bch8 = get_preset("bch_sc").spec
     for L in range(1, 9):
         k8 = cuda_scl.SclKernels(bch8, L)
-        print(f"the general body at bch_sc L={L}: threads, blocks an SM (occupancy "
-              f"API), (dynamic, static shared memory) a block: "
-              + ", ".join(f"{k} {k8.block_threads(k, dev)} {k8.blocks_per_sm(k, dev)} "
-                          f"{k8.smem_bytes(k, dev)}" for k in cuda_scl.KERNELS))
+        print(f"the general body at bch_sc L={L}: threads, codewords a block, blocks "
+              f"an SM (occupancy API), (dynamic, static shared memory) a block: "
+              + ", ".join(f"{k} {k8.block_threads(k, dev)} {k8.block_codewords(k, dev)} "
+                          f"{k8.blocks_per_sm(k, dev)} {k8.smem_bytes(k, dev)}"
+                          for k in cuda_scl.KERNELS))
     print("blocks an SM at ca_scl L=8 (dynamic, static shared memory a block): "
           + ", ".join(f"{k} {ca_kernels.blocks_per_sm(k, dev)} "
                       f"{ca_kernels.smem_bytes(k, dev)}"

@@ -191,33 +191,44 @@ enum Output { kSelect = 0, kTrajectory = 1, kCounters = 2, kSubtree = 3 };
 // slot of its input's method: the last input's single correlation, the
 // syndrome trellis or the tail table. kClkRounds is a count, not cycles:
 // the R1/SPC fork rounds the block ran (kClkChain / kClkRounds: cycles a
-// round).
+// round). The general body keys each slot by the stage of the op that
+// ran as well (`clk_stage`: its level, stages past kClkStages - 1 in the
+// last key; key 0 holds the set-up, the prologue and the epilogue), so
+// the split shows where the block's time goes stage by stage.
 enum ClockSlot {
   kClkSetup = 0, kClkPrologue, kClkDown, kClkUp, kClkR0, kClkRepSums,
   kClkRepFork, kClkSelect, kClkChain, kClkDecide, kClkPerm, kClkInverse,
   kClkBigLast, kClkBigTrellis, kClkBigTable, kClkEpilogue, kClkRounds,
   kClkSlots
 };
+constexpr int kClkStages = 4;
 #ifdef SCL_CLOCK
 constexpr int kClockBlocks = 128;
-__device__ unsigned long long g_clock[kClkSlots + 1];   // + blocks measured
-__shared__ unsigned long long clk_acc[kClkSlots];
+constexpr int kClkCells = kClkStages * kClkSlots;   // [stage key][slot]
+__device__ unsigned long long g_clock[kClkCells + 1];   // + blocks measured
+__shared__ unsigned long long clk_acc[kClkCells];
 __shared__ long long clk_last;
+__shared__ int clk_key;
 __device__ __forceinline__ void clk_begin() {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kClkSlots; ++i) clk_acc[i] = 0ull;
+    for (int i = 0; i < kClkCells; ++i) clk_acc[i] = 0ull;
+    clk_key = 0;
     clk_last = clock64();
   }
+}
+// the stage the next marks are keyed by
+__device__ __forceinline__ void clk_stage(int lvl) {
+  if (threadIdx.x == 0) clk_key = (lvl < kClkStages ? lvl : kClkStages - 1) * kClkSlots;
 }
 __device__ __forceinline__ void clk_mark(int slot) {
   if (threadIdx.x == 0) {
     const long long now = clock64();
-    clk_acc[slot] += (unsigned long long)(now - clk_last);
+    clk_acc[clk_key + slot] += (unsigned long long)(now - clk_last);
     clk_last = now;
   }
 }
 __device__ __forceinline__ void clk_count(int slot, int n) {
-  if (threadIdx.x == 0) clk_acc[slot] += (unsigned long long)n;
+  if (threadIdx.x == 0) clk_acc[clk_key + slot] += (unsigned long long)n;
 }
 // the same by the thread `me` (the Arikan body's leader warp, lane 0)
 __device__ __forceinline__ void clk_mark_by(bool me, int slot) {
@@ -231,14 +242,16 @@ __device__ __forceinline__ void clk_count_by(bool me, int slot, int n) {
   if (me) clk_acc[slot] += (unsigned long long)n;
 }
 __device__ __forceinline__ void clk_end() {
+  clk_stage(0);
   clk_mark(kClkEpilogue);
   if (threadIdx.x == 0 && blockIdx.x < kClockBlocks) {
-    for (int i = 0; i < kClkSlots; ++i) atomicAdd(&g_clock[i], clk_acc[i]);
-    atomicAdd(&g_clock[kClkSlots], 1ull);
+    for (int i = 0; i < kClkCells; ++i) atomicAdd(&g_clock[i], clk_acc[i]);
+    atomicAdd(&g_clock[kClkCells], 1ull);
   }
 }
 #else
 __device__ __forceinline__ void clk_begin() {}
+__device__ __forceinline__ void clk_stage(int) {}
 __device__ __forceinline__ void clk_mark(int) {}
 __device__ __forceinline__ void clk_count(int, int) {}
 __device__ __forceinline__ void clk_mark_by(bool, int) {}
@@ -316,10 +329,41 @@ __device__ float warp_tree_sum(const float* v, int n, int positive, int lane) {
   return s;
 }
 
-// A barrier over the block of T threads: a warp's at T = 32.
+// `warp_tree_sum` on the 16 lanes of a half-warp (lane < 16, the
+// codeword's; two codewords a warp, each in its own half): the same tree,
+// x[lane + 16 i] folded by halves in registers, then across the half.
+__device__ float half_tree_sum(const float* v, int n, int positive, int lane) {
+  float r[32];
+  const int k = n >> 4;
+  if (n >= 16) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      r[i] = (i < k) ? relu_val(v[lane + 16 * i], positive) : 0.f;
+#pragma unroll
+    for (int h = 16; h >= 1; h >>= 1) {
+      if (2 * h <= k) {
+#pragma unroll
+        for (int i = 0; i < h; ++i) r[i] = r[i] + r[i + h];
+      }
+    }
+  } else {
+    r[0] = (lane < n) ? relu_val(v[lane], positive) : 0.f;
+  }
+  float s = r[0];
+  const int top = (n >= 16) ? 8 : (n >> 1);
+#pragma unroll
+  for (int off = 8; off >= 1; off >>= 1) {
+    const float o = __shfl_xor_sync(kFull, s, off);
+    if (off <= top) s = s + o;
+  }
+  return s;
+}
+
+// A barrier over the block of T threads: a warp's at T <= 32 (T = 16: the
+// half-warp of a codeword, both halves of the warp at the barrier).
 template <int T>
 __device__ __forceinline__ void block_sync() {
-  if constexpr (T == 32) __syncwarp();
+  if constexpr (T <= 32) __syncwarp();
   else __syncthreads();
 }
 
@@ -367,18 +411,19 @@ __device__ __forceinline__ void fork_rank(SM& sm, int lane, int P, float pm_p,
 }
 
 // Node metric sums: put(p, tree sum of relu(+-L[p*n + j]) over j) for
-// every p < P, in the fixed pairwise tree of `warp_tree_sum`. P*n <= 32:
-// all paths in one warp, n lanes a path; else a warp a path. By the
-// group's warps (gwarp of gwarps).
-template <class Put>
+// every p < P, in the fixed pairwise tree of `warp_tree_sum`. P*n <= W:
+// all paths in one group of W lanes (a warp, or at W = 16 a codeword's
+// half-warp), n lanes a path; else a group a path. By the codeword's
+// groups (gwarp of gwarps).
+template <int W = 32, class Put>
 __device__ __forceinline__ void node_sums(const float* L, int n, int ln, int P,
                                           int positive, int gwarp, int gwarps,
                                           int lane, Put put) {
-  if (P * n <= 32) {
+  if (P * n <= W) {
     if (gwarp == 0) {
       float v = lane < P * n ? relu_val(L[lane], positive) : 0.f;
 #pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) {
+      for (int off = W / 2; off >= 1; off >>= 1) {
         const float o = __shfl_xor_sync(kFull, v, off);
         if (off < n) v = v + o;
       }
@@ -386,7 +431,9 @@ __device__ __forceinline__ void node_sums(const float* L, int n, int ln, int P,
     }
   } else {
     for (int p = gwarp; p < P; p += gwarps) {
-      const float v = warp_tree_sum(L + p * n, n, positive, lane);
+      float v;
+      if constexpr (W == 32) v = warp_tree_sum(L + p * n, n, positive, lane);
+      else v = half_tree_sum(L + p * n, n, positive, lane);
       if (lane == 0) put(p, v);
     }
   }
@@ -493,18 +540,19 @@ __device__ __forceinline__ void fork_table(ForkTable<32>& ft, int lane, int P,
 }
 
 // The R1/SPC selection of the general body, by a group of warps (warp
-// runs from `base0`, `stride` threads): each input's rank by (|v|, j)
-// among its path's n inputs; ranks < n_min give the least reliable
-// positions and |v| in order (== extract_mins' rounds wherever every |v| <
-// kBig; the chain's head applies `rstar` for the rest); and the signs'
-// parity a path (SPC) into ft.par.
-template <int CAP>
+// runs from `base0`, `stride` threads; at W = 16 a codeword's half-warp):
+// each input's rank by (|v|, j) among its path's n inputs; ranks < n_min
+// give the least reliable positions and |v| in order (== extract_mins'
+// rounds wherever every |v| < kBig; the chain's head applies `rstar` for
+// the rest); and the signs' parity a path (SPC) into ft.par.
+template <int CAP, int W = 32>
 __device__ void select_rank(const float* L, int P, int n, int ln, int n_min,
                             bool spc, Small<CAP>& sm, int base0, int stride,
                             int lane) {
+  constexpr int kLog = W == 32 ? 5 : 4;
   const int E = P * n;
-  const int cw = (E + 31) >> 5;
-  for (int base = base0; base < cw * 32; base += stride) {
+  const int cw = (E + W - 1) >> kLog;
+  for (int base = base0; base < cw * W; base += stride) {
     const int e = base + lane;
     const bool in = e < E;
     const float v = in ? L[e] : 0.f;
@@ -540,12 +588,13 @@ __device__ void select_rank(const float* L, int P, int n, int ln, int n_min,
       }
     }
     if (spc) {
-      const unsigned neg = __ballot_sync(kFull, in && v < 0.f);
+      unsigned neg = __ballot_sync(kFull, in && v < 0.f);
+      if constexpr (W < 32) neg = (neg >> (threadIdx.x & 16)) & 0xffffu;   // the half's
       if (lane == 0) {
-        if (n >= 32) {
+        if (n >= W) {
           atomicXor(&sm.par[base >> ln], (unsigned)__popc(neg) & 1u);
         } else {
-          for (int sg = 0; sg < 32 && base + sg < E; sg += n)
+          for (int sg = 0; sg < W && base + sg < E; sg += n)
             atomicXor(&sm.par[(base + sg) >> ln],
                       (unsigned)__popc((neg >> sg) & ((1u << n) - 1u)) & 1u);
         }
@@ -655,42 +704,59 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
 
 // XOR / sum of one value per thread over a block of T threads; every
 // thread gets it.
+// T = 16: a codeword's half-warp, reduced by its shuffles alone.
 template <int T, class SM>
 __device__ unsigned block_xor(unsigned v, SM& sm, int lane, int warp) {
 #pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) v ^= __shfl_xor_sync(kFull, v, off);
-  if (lane == 0) sm.red[warp] = v;
-  block_sync<T>();
-  unsigned r = 0u;
+  for (int off = T < 32 ? T / 2 : 16; off >= 1; off >>= 1)
+    v ^= __shfl_xor_sync(kFull, v, off);
+  if constexpr (T < 32) {
+    return v;
+  } else {
+    if (lane == 0) sm.red[warp] = v;
+    block_sync<T>();
+    unsigned r = 0u;
 #pragma unroll
-  for (int w = 0; w < T / 32; ++w) r ^= sm.red[w];
-  block_sync<T>();
-  return r;
+    for (int w = 0; w < T / 32; ++w) r ^= sm.red[w];
+    block_sync<T>();
+    return r;
+  }
 }
 
 template <int T, class SM>
 __device__ int block_sum(int v, SM& sm, int lane, int warp) {
 #pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  if (lane == 0) sm.red[warp] = (unsigned)v;
-  block_sync<T>();
-  int r = 0;
+  for (int off = T < 32 ? T / 2 : 16; off >= 1; off >>= 1)
+    v += __shfl_xor_sync(kFull, v, off);
+  if constexpr (T < 32) {
+    return v;
+  } else {
+    if (lane == 0) sm.red[warp] = (unsigned)v;
+    block_sync<T>();
+    int r = 0;
 #pragma unroll
-  for (int w = 0; w < T / 32; ++w) r += (int)sm.red[w];
-  block_sync<T>();
-  return r;
+    for (int w = 0; w < T / 32; ++w) r += (int)sm.red[w];
+    block_sync<T>();
+    return r;
+  }
 }
 
-// The Monte-Carlo prologue of codeword b = blockIdx.x: data bits, CRC,
-// encode, BPSK-AWGN, LLRs into chan[N]; the transmitted u into ut[N]. xb
-// (N bytes) is scratch; st the stage tables (read after the first
-// barrier). Every thread of the block (T threads).
-template <bool BIG, int T, class SM>
+// The Monte-Carlo prologue of codeword b = blockIdx.x (CW codewords a
+// block: CW * blockIdx.x + the thread's T-thread part, the last codeword
+// again in an idle part): data bits, CRC, encode, BPSK-AWGN, LLRs into
+// chan[N]; the transmitted u into ut[N]. xb (N bytes) is scratch; st the
+// stage tables (read after the first barrier). Every thread of the
+// codeword (T threads).
+template <bool BIG, int T, int CW = 1, class SM>
 __device__ void mc_prologue(const SclArgs& a, const StageTab* st,
                             float* chan, unsigned char* ut, unsigned char* xb,
                             SM& sm, int tid, int lane, int warp) {
   const int N = a.N, K = a.K, nh = a.N >> 1;
-  const unsigned b = blockIdx.x;
+  unsigned b = blockIdx.x;
+  if constexpr (CW > 1) {
+    b = b * CW + threadIdx.x / T;
+    if ((int)b >= a.B) b = (unsigned)a.B - 1u;
+  }
   unsigned* words = reinterpret_cast<unsigned*>(chan);
   // word w = output w % 4 of counter (w / 4, b, 0, 0): words [0, N) give
   // the data bits (least significant bit), [N, 2N) the uniforms u1, u2
@@ -916,6 +982,13 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
 //   spec, N=512, from L=6 or 7); bch_sc takes one warp at every L. PERF.md
 //   (§6) has the times at 32 and 64 threads and why no wider block is
 //   kept.
+// - At L = 1, K2, K4 and K5 decode two codewords a warp, a half-warp each
+//   (`general_codewords`, the `_cw2` instances), where an SM then holds
+//   more codewords. The op-kind clock by stage (PERF.md §6) put 66% of
+//   bch_sc's K5 block in stage 2, one position a step, whose trellis
+//   inputs take 2-16 lanes, whose last tables 1-16 and whose leaves one:
+//   the second codeword fills lanes the first leaves idle, for the same
+//   warps and registers an SM.
 // - 128 registers a thread (16 warps an SM): at 80 and 64 these
 //   instances spilled and ran slower (PERF.md).
 // - The stage tables (StageTab with its BigKernel) are copied once to
@@ -937,22 +1010,53 @@ __host__ __device__ inline int stage_copy_bytes(int m) {
   return ((m + 1) * (int)sizeof(StageTab) + 15) & ~15;
 }
 
-template <int SRC, int OUT, bool BIG, int CAP, int T>
+// Bytes of one codeword's decode state in the general body's dynamic
+// shared memory (past the copied stage tables): LLR buffers, the channel
+// LLRs (Monte-Carlo kernels), decision bytes, trajectory bits, span perms
+// and suffix indices, the path maps, u_true (Monte-Carlo kernels) and the
+// subtree kernel's net map.
+__host__ __device__ inline int codeword_state_bytes(const SclArgs& a, bool mc,
+                                                    bool subtree) {
+  return 4 * a.n_lam + a.n_dec + a.N * a.P + 2 * a.Q * a.P + a.n_maps
+         + (mc ? 5 * a.N : 0) + (subtree ? a.P : 0);
+}
+
+// CW codewords a block: CW = 2 is the list-size-1 instances of K2, K4 and
+// K5 (`general_codewords`), a half-warp (TC = 16 threads) a codeword in
+// lockstep, each with its own decode state (a 16-aligned region of the
+// dynamic shared memory after the one copy of the stage tables) and its
+// own `Small<8>`. SC has no forks, so both halves run the same op program
+// and meet at the same barriers (__syncwarp); every group of lanes, shuffle
+// and ballot stays within a half. Codeword 2 * blockIdx.x + half; in the
+// last block of an odd batch the second half decodes the last codeword
+// again and writes nothing. P is 1 at compile time there.
+template <int SRC, int OUT, bool BIG, int CAP, int T, int CW = 1>
 __device__ __forceinline__ void scl_body(const SclArgs& a) {
   static_assert(OUT != kCounters || SRC == kMonteCarlo,
                 "counting errors needs the transmitted u");
   static_assert((OUT == kSubtree) == (SRC == kPathBound),
                 "a depth-1 child takes a path-bound input");
   static_assert(CAP == 8 || T == kThreads, "capacity 32 runs kThreads");
-  constexpr int kW = T / 32;
+  static_assert(CW == 1 || (CW == 2 && CAP == 8 && T == 32 && SRC != kPathBound
+                            && OUT != kSelect),
+                "two codewords a block: K2, K4, K5 on a warp at capacity 8");
+  constexpr int TC = T / CW;                 // threads a codeword
+  constexpr int kW = TC >= 32 ? TC / 32 : 1;   // its lane groups
+  constexpr int kLanes = TC < 32 ? TC : 32;    // lanes of a group
   // capacity 8 on more than one warp: small ops run in warp 0 alone
   constexpr bool kGroups = CAP == 8 && T > 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Small<CAP> sm;
-  const int N = a.N, m = a.m, P = a.P, Q = a.Q, K = a.K, W = a.W;
-  const int tid = threadIdx.x;
+  __shared__ Small<CAP> sms[CW];
+  const int half = CW == 1 ? 0 : (int)threadIdx.x / TC;
+  Small<CAP>& sm = sms[half];
+  const int N = a.N, m = a.m, P = CW == 1 ? a.P : 1, Q = a.Q, K = a.K, W = a.W;
+  const int tid = CW == 1 ? (int)threadIdx.x : (int)threadIdx.x % TC;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // CW = 2: the codeword; `live`: in the batch (it writes), else it
+  // decodes the last one again (CW = 1 reads blockIdx.x where it is used)
+  const unsigned bq = blockIdx.x * CW + half;
+  const bool live = CW == 1 || (int)bq < a.B;
   // capacity 8: the stage tables in shared memory for the whole decode
   const int st_bytes = CAP == 8 ? stage_copy_bytes(m) : 0;
   const StageTab* const st =
@@ -960,10 +1064,12 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   if constexpr (CAP == 8) {
     const unsigned* from = reinterpret_cast<const unsigned*>(a.st);
     unsigned* to = reinterpret_cast<unsigned*>(smem);
-    for (int i = tid; i < (m + 1) * (int)sizeof(StageTab) / 4; i += T)
+    for (int i = threadIdx.x; i < (m + 1) * (int)sizeof(StageTab) / 4; i += T)
       to[i] = from[i];
   }
-  float* lam = reinterpret_cast<float*>(smem + st_bytes);
+  const int cw_off = CW == 1 ? 0
+      : half * ((codeword_state_bytes(a, SRC == kMonteCarlo, false) + 15) & ~15);
+  float* lam = reinterpret_cast<float*>(smem + st_bytes + cw_off);
   float* chan = lam + a.n_lam;                           // kMonteCarlo only
   unsigned char* dec =
       reinterpret_cast<unsigned char*>(chan + (SRC == kMonteCarlo ? N : 0));
@@ -977,19 +1083,26 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   unsigned char* netmap = maps + a.n_maps;
   const int n_maps = a.n_maps + (SRC == kPathBound ? P : 0);
 
-  if (tid <= m) {
-    const StageTab& ts = a.st[tid];
-    sm.stage[tid] = make_int4(ts.n, ts.loff, ts.doff, ts.mbase);
+  if constexpr (TC >= 32) {
+    if (tid <= m) {
+      const StageTab& ts = a.st[tid];
+      sm.stage[tid] = make_int4(ts.n, ts.loff, ts.doff, ts.mbase);
+    }
+  } else {
+    for (int i = tid; i <= m; i += TC) {     // up to 17 stages, 16 lanes
+      const StageTab& ts = a.st[i];
+      sm.stage[i] = make_int4(ts.n, ts.loff, ts.doff, ts.mbase);
+    }
   }
   const float* x;
   if constexpr (SRC == kMonteCarlo) {
-    mc_prologue<BIG, T>(a, st, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
+    mc_prologue<BIG, TC, CW>(a, st, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
     clk_mark(kClkPrologue);
     x = chan;
   } else if constexpr (SRC == kPathBound) {
     x = a.llr + (size_t)blockIdx.x * P * N;
   } else {
-    x = a.llr + (size_t)blockIdx.x * N;
+    x = a.llr + (size_t)(CW == 1 ? blockIdx.x : live ? bq : a.B - 1) * N;
   }
 
   // stage s (1..m): block n_s, LLR buffer P*n_s, l_s decision children of
@@ -1001,7 +1114,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   auto rlam = [&](int s) { return maps + sm.stage[s].w; };
   auto rdec_base = [&](int s, int c) { return sm.stage[s].w + (1 + c) * P; };
 
-  for (int i = tid; i < n_maps; i += T) maps[i] = (unsigned char)(i % P);
+  for (int i = tid; i < n_maps; i += TC) maps[i] = (unsigned char)(i % P);
   if (tid < P) {
     if constexpr (SRC == kPathBound) sm.pm[tid] = a.pm_in[blockIdx.x * P + tid];
     else sm.pm[tid] = (tid == 0) ? 0.f : kBig;
@@ -1012,7 +1125,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
           (tid & 31) < P ? 0.f : __int_as_float(0x7fffffff);   // NaN
   }
   if (tid < CAP) sm.par[tid] = 0u;
-  block_sync<T>();
+  block_sync<TC>();
   clk_mark(kClkSetup);
 
   int q = 0;   // trajectory span of the next node op
@@ -1032,6 +1145,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const int n = sm.stage[lvl].x;
     const int ln = __ffs(n) - 1;
     const bool down = kind == DOWN_FRESH || kind == DOWN_DYN;
+    clk_stage(lvl);
     // the group that runs this op: warp 0 alone for an op of P*n <= 32
     // elements and every LEAF (never an l > 2 DOWN), else the block
     const bool small =
@@ -1044,11 +1158,11 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         continue;
       }
     }
-    const int gsize = small ? 32 : T, grank = small ? lane : tid;
+    const int gsize = small ? 32 : TC, grank = small ? lane : tid;
     const int gwarps = small ? 1 : kW, gwarp = small ? 0 : warp;
     auto gsync = [&]() {
       if (small) __syncwarp();
-      else block_sync<T>();
+      else block_sync<TC>();
     };
 
     if (down) {
@@ -1067,11 +1181,11 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         const BigKernel& bk = st[s].k;
         if (bk.l > 2) {
           const int bi = kind == DOWN_FRESH ? 0 : child;
-          big_down<CAP, T, CAP == 32 && OUT == kSubtree>(
+          big_down<CAP, TC, CAP == 32 && OUT == kSubtree>(
               bk, bi, out, x, par, rl, d0, rd0, P, n, ln, sm.redf, tid, lane,
               warp);
           if (tid < P) rlam(s)[tid] = (unsigned char)tid;
-          block_sync<T>();
+          block_sync<TC>();
           clk_mark(bi == bk.l - 1 ? kClkBigLast
                    : bk.states[bi] ? kClkBigTrellis : kClkBigTable);
           continue;
@@ -1154,7 +1268,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 
     if (kind == R0) {
       if constexpr (CAP == 8) {
-        node_sums(L, n, ln, P, 0, gwarp, gwarps, lane,
+        node_sums<kLanes>(L, n, ln, P, 0, gwarp, gwarps, lane,
                   [&](int p, float v) { sm.pm[p] = sm.pm[p] + v; });
       } else {
         for (int p = warp; p < P; p += kWarps) {
@@ -1181,9 +1295,9 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if (kind == REP || kind == LEAF || kind == LEAF_FROZEN) {
       if (kind == REP) {
         if constexpr (CAP == 8) {
-          node_sums(L, n, ln, P, 0, gwarp, gwarps, lane,
+          node_sums<kLanes>(L, n, ln, P, 0, gwarp, gwarps, lane,
                     [&](int p, float v) { sm.s0[p] = v; });
-          node_sums(L, n, ln, P, 1, gwarp, gwarps, lane,
+          node_sums<kLanes>(L, n, ln, P, 1, gwarp, gwarps, lane,
                     [&](int p, float v) { sm.s1[p] = v; });
         } else {
           for (int p = warp; p < P; p += kWarps) {
@@ -1256,7 +1370,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     const int first = spc ? 1 : 0;
     clk_count(kClkRounds, rounds);
     // 1. the least reliable positions and the parity, one pass
-    select_rank<CAP>(L, P, n, ln, n_min, spc, sm, gwarp * 32, gsize, lane);
+    select_rank<CAP, kLanes>(L, P, n, ln, n_min, spc, sm, gwarp * 32, gsize, lane);
     gsync();
     clk_mark(kClkSelect);
     // 2. the fork chain, warp 0: metrics, node map and eta in registers
@@ -1372,17 +1486,18 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if (prev_small) __syncthreads();
   }
 
-  const size_t b = blockIdx.x;
+  const size_t b = CW == 1 ? blockIdx.x : bq;
   if constexpr (OUT == kTrajectory || OUT == kSubtree) {
+    if (!live) return;                     // no barrier follows
     // the genealogy, [B, ...]-major: one contiguous run per codeword
     uint8_t* tb = a.traj_bit + b * N * P;
-    for (int i = tid; i < N * P; i += T) tb[i] = traj[i];
+    for (int i = tid; i < N * P; i += TC) tb[i] = traj[i];
     uint8_t* tp = a.traj_perm + b * Q * P;
-    for (int i = tid; i < Q * P; i += T) tp[i] = tperm[i];
+    for (int i = tid; i < Q * P; i += TC) tp[i] = tperm[i];
     if (tid < P) a.pm[b * P + tid] = sm.pm[tid];
     if constexpr (SRC == kMonteCarlo) {
       int8_t* u = a.u_true + b * N;
-      for (int t = tid; t < N; t += T) u[t] = (int8_t)ut[t];
+      for (int t = tid; t < N; t += TC) u[t] = (int8_t)ut[t];
     }
     if constexpr (OUT == kSubtree) {
       // the net survival map, and the root re-encode x_k = XOR_j u_j
@@ -1394,7 +1509,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       const unsigned char* d0 = dec_at(1, 0);
       const unsigned char* rd0 = maps + rdec_base(1, 0);
       uint8_t* xo = a.xblk + b * P * N;
-      for (int e = tid; e < P * n; e += T) {
+      for (int e = tid; e < P * n; e += TC) {
         const int p = e / n, j = e % n;
         unsigned u = 0u;
         for (int c = 0; c < l; ++c)
@@ -1414,11 +1529,11 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       s = tperm[qq * P + s];
     }
   }
-  block_sync<T>();
+  block_sync<TC>();
   for (int p = warp; p < P; p += kW) {
     unsigned acc = 0u, rec = 0u;
     if (W > 0) {
-      for (int t = lane; t < N; t += 32) {
+      for (int t = lane; t < N; t += kLanes) {
         const int k = a.pidx[t];
         if (k < 0) continue;
         const unsigned bit = traj[t * P + sidx[a.qrow[t] * P + p]];
@@ -1426,14 +1541,14 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
         else rec |= bit << (k - K);
       }
 #pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) {
+      for (int off = kLanes / 2; off >= 1; off >>= 1) {
         acc ^= __shfl_xor_sync(kFull, acc, off);
         rec |= __shfl_xor_sync(kFull, rec, off);
       }
     }
     if (lane == 0) sm.ok[p] = (W == 0 || (acc ^ a.offmask) == rec) ? 1.f : 0.f;
   }
-  block_sync<T>();
+  block_sync<TC>();
   if (tid == 0) {
     int best = 0;
     float bs = sm.pm[0] + kBig * (1.f - sm.ok[0]);
@@ -1447,22 +1562,22 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
       a.ok[b] = sm.ok[best] > 0.5f;
     }
   }
-  block_sync<T>();
+  block_sync<TC>();
   const int best = sm.best;
   if constexpr (OUT == kSelect) {
     int8_t* u = a.u + b * N;
-    for (int t = tid; t < N; t += T)
+    for (int t = tid; t < N; t += TC)
       u[t] = (int8_t)traj[t * P + sidx[a.qrow[t] * P + best]];
   } else {
     // errors of the best path on the data rows (CRC rows do not count)
     int err = 0;
-    for (int t = tid; t < N; t += T) {
+    for (int t = tid; t < N; t += TC) {
       const int k = a.pidx[t];
       if (k < 0 || k >= K) continue;
       err += traj[t * P + sidx[a.qrow[t] * P + best]] != ut[t];
     }
-    err = block_sum<T>(err, sm, lane, warp);
-    if (tid == 0) {
+    err = block_sum<TC>(err, sm, lane, warp);
+    if (tid == 0 && live) {
       a.counters[b] = err > 0;
       a.counters[a.B + b] = err;
     }
@@ -2309,6 +2424,18 @@ FAST_KERNELS(128)
   SCL_KERNEL(scl_subtree_t##T, T, BIG8_BLOCKS(T), kPathBound, kSubtree, true, 8)
 BIG8_KERNELS(32)
 BIG8_KERNELS(64)
+// capacity 8 at list size 1, two codewords a warp (`general_codewords`):
+// K2, K4 and K5
+#define BIG8_CW2_KERNEL(NAME, SRC, OUT)                                         \
+  __global__ void __launch_bounds__(32, BIG8_BLOCKS(32)) NAME##_big_t32_cw2(    \
+      SclArgs a) {                                                            \
+    clk_begin();                                                              \
+    scl_body<SRC, OUT, true, 8, 32, 2>(a);                                    \
+    clk_end();                                                                \
+  }
+BIG8_CW2_KERNEL(scl_decode_traj, kLlrIn, kTrajectory)
+BIG8_CW2_KERNEL(scl_mc_traj, kMonteCarlo, kTrajectory)
+BIG8_CW2_KERNEL(scl_mc_counters, kMonteCarlo, kCounters)
 // capacity 32 (8 < L <= 32; K1, K2, K4, K5, replacing pallas_scl.py
 // `core_sel`, `core`, `core_mc`, `core_cnt` there): the fork table, the
 // one-pass selection and the in-place flips (the note above `fork_table`);
@@ -2335,6 +2462,67 @@ static bool arikan8(int kernel, int P, int big) {
   return kernel < 4 && !big && P <= 8;
 }
 
+// An SM's shared memory, what the runtime keeps a block of it, its
+// registers and its blocks (the device's own limits); false if the device
+// cannot be asked.
+static bool sm_limits(int* smem, int* reserved, int* regs, int* blocks) {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess
+         && cudaDeviceGetAttribute(smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
+                == cudaSuccess
+         && cudaDeviceGetAttribute(reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
+                == cudaSuccess
+         && cudaDeviceGetAttribute(regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev)
+                == cudaSuccess
+         && cudaDeviceGetAttribute(blocks, cudaDevAttrMaxBlocksPerMultiprocessor, dev)
+                == cudaSuccess;
+}
+
+// Threads a codeword of the general body for `kernel` on *a at one
+// codeword a block: capacity 32 kThreads; capacity 8 one warp, or two
+// where the one-warp blocks an SM's shared memory holds bring fewer warps
+// than its registers allow at kBig8Registers a thread, W (the device's own
+// limits): fewer than W for the decode kernels, fewer than 3W/4 for the
+// Monte-Carlo kernels (K4, K5), which gained from the second warp only
+// there (PERF.md §6). 0 if the device cannot be asked. ops/cuda_scl.py
+// `general_threads` models it with an H100's limits.
+static int general_threads(int kernel, const SclArgs* a) {
+  if (a->P > 8) return kThreads;
+  int smem = 0, reserved = 0, regs = 0, most = 0;
+  if (!sm_limits(&smem, &reserved, &regs, &most)) return 0;
+  const size_t block = stage_copy_bytes(a->m)
+                       + codeword_state_bytes(*a, kernel == 2 || kernel == 3, kernel == 4)
+                       + sizeof(Small<8>) + reserved;
+  const int blocks = (int)(smem / block);
+  const int quarters = kernel == 2 || kernel == 3 ? 3 : 4;  // of W
+  return 4 * blocks * 32 * kBig8Registers < quarters * regs ? 64 : 32;
+}
+
+// Codewords a block of the general body for `kernel` on *a: two, a
+// half-warp each (the CW = 2 instances), for K2, K4 and K5 at list size 1
+// where an SM then holds more codewords (its blocks by registers, shared
+// memory and count) than at one codeword a block of `general_threads`;
+// else one. At L >= 2 the forks need the whole warp. 0 if the device
+// cannot be asked. ops/cuda_scl.py `general_codewords` models it.
+static int general_codewords(int kernel, const SclArgs* a) {
+  if (a->P != 1 || kernel < 1 || kernel > 3 || arikan8(kernel, a->P, a->big))
+    return 1;
+  int smem = 0, reserved = 0, regs = 0, most = 0;
+  const int T = general_threads(kernel, a);
+  if (T == 0 || !sm_limits(&smem, &reserved, &regs, &most)) return 0;
+  const int copy = stage_copy_bytes(a->m);
+  const int state = codeword_state_bytes(*a, kernel == 2 || kernel == 3, false);
+  auto per_sm = [&](int threads, size_t block) {
+    const int by_regs = regs / (threads * kBig8Registers);
+    const int by_smem = (int)(smem / (block + reserved));
+    return by_regs < by_smem ? (by_regs < most ? by_regs : most)
+                             : (by_smem < most ? by_smem : most);
+  };
+  const int one = per_sm(T, copy + state + sizeof(Small<8>));
+  const int two = 2 * per_sm(32, copy + 2 * ((state + 15) & ~15) + 2 * sizeof(Small<8>));
+  return two > one ? 2 : 1;
+}
+
 // kernel: 0 scl_decode, 1 scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters,
 // 4 scl_subtree
 size_t scl_smem_bytes(int kernel, const SclArgs* a) {
@@ -2342,35 +2530,13 @@ size_t scl_smem_bytes(int kernel, const SclArgs* a) {
     return (size_t)fast_layout(a->N, a->m, a->P, a->Q, kernel == 2 || kernel == 3,
                                a->view1 != 0)
         .total;
-  const size_t N = a->N, P = a->P, Q = a->Q;
-  return (P <= 8 ? (size_t)stage_copy_bytes(a->m) : 0) + (size_t)4 * a->n_lam
-         + (size_t)a->n_dec + N * P + 2 * Q * P + (size_t)a->n_maps
-         + (kernel == 2 || kernel == 3 ? 5 * N : 0) + (kernel == 4 ? P : 0);
-}
-
-// Threads a codeword of the general body for `kernel` on *a: capacity 32
-// kThreads; capacity 8 one warp, or two where the one-warp blocks an SM's
-// shared memory holds bring fewer warps than its registers allow at
-// kBig8Registers a thread, W (the device's own limits): fewer than W for
-// the decode kernels, fewer than 3W/4 for the Monte-Carlo kernels (K4, K5),
-// which gained from the second warp only there (PERF.md §6). 0 if
-// the device cannot be asked. ops/cuda_scl.py `general_threads` models it
-// with an H100's limits.
-static int general_threads(int kernel, const SclArgs* a) {
-  if (a->P > 8) return kThreads;
-  int dev = 0, smem = 0, reserved = 0, regs = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
-             != cudaSuccess
-      || cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
-             != cudaSuccess
-      || cudaDeviceGetAttribute(&regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev)
-             != cudaSuccess)
-    return 0;
-  const size_t block = scl_smem_bytes(kernel, a) + sizeof(Small<8>) + reserved;
-  const int blocks = (int)(smem / block);
-  const int quarters = kernel == 2 || kernel == 3 ? 3 : 4;  // of W
-  return 4 * blocks * 32 * kBig8Registers < quarters * regs ? 64 : 32;
+  const int state = codeword_state_bytes(*a, kernel == 2 || kernel == 3, kernel == 4);
+  if (a->P > 8) return (size_t)state;
+  // capacity 8: the stage tables, then each codeword's state (16-aligned
+  // past the first at two codewords a block)
+  return (size_t)stage_copy_bytes(a->m)
+         + (general_codewords(kernel, a) == 2 ? 2 * (size_t)((state + 15) & ~15)
+                                              : (size_t)state);
 }
 
 // Threads a codeword of the Arikan capacity-8 body for `kernel` on *a: 128
@@ -2379,15 +2545,8 @@ static int general_threads(int kernel, const SclArgs* a) {
 // registers allow (the device's own limits). 0 if the device cannot be
 // asked. ops/cuda_scl.py `fast_threads` models it with an H100's limits.
 static int fast_threads(int kernel, const SclArgs* a) {
-  int dev = 0, smem = 0, reserved = 0, regs = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
-             != cudaSuccess
-      || cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
-             != cudaSuccess
-      || cudaDeviceGetAttribute(&regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev)
-             != cudaSuccess)
-    return 0;
+  int smem = 0, reserved = 0, regs = 0, most = 0;
+  if (!sm_limits(&smem, &reserved, &regs, &most)) return 0;
   const size_t block = scl_smem_bytes(kernel, a) + sizeof(Fast) + reserved;
   const int blocks = (int)(smem / block);
   return blocks * 128 * kFastRegisters > regs ? 64 : 128;
@@ -2395,8 +2554,14 @@ static int fast_threads(int kernel, const SclArgs* a) {
 
 // threads a block of the instance that runs `kernel` for *a
 int scl_block_threads(int kernel, const SclArgs* a) {
-  return arikan8(kernel, a->P, a->big) ? fast_threads(kernel, a)
-                                       : general_threads(kernel, a);
+  if (arikan8(kernel, a->P, a->big)) return fast_threads(kernel, a);
+  return general_codewords(kernel, a) == 2 ? 32 : general_threads(kernel, a);
+}
+
+// codewords a block of the instance that runs `kernel` for *a (0 if the
+// device cannot be asked)
+int scl_block_codewords(int kernel, const SclArgs* a) {
+  return arikan8(kernel, a->P, a->big) ? 1 : general_codewords(kernel, a);
 }
 
 // The instance that runs `kernel` for *a, after its shared-memory limit is
@@ -2407,12 +2572,15 @@ static void (*instance(int kernel, const SclArgs* a, size_t smem))(SclArgs) {
       {scl_decode_t64, scl_decode_traj_t64, scl_mc_traj_t64, scl_mc_counters_t64},
       {scl_decode_t128, scl_decode_traj_t128, scl_mc_traj_t128,
        scl_mc_counters_t128}};
-  // capacity 8, [T / 64][kernel]
+  // capacity 8, [T / 64][kernel]; two codewords a warp, [kernel - 1]
   static void (*const big8[2][5])(SclArgs) = {
       {scl_decode_big_t32, scl_decode_traj_big_t32, scl_mc_traj_big_t32,
        scl_mc_counters_big_t32, scl_subtree_t32},
       {scl_decode_big_t64, scl_decode_traj_big_t64, scl_mc_traj_big_t64,
        scl_mc_counters_big_t64, scl_subtree_t64}};
+  static void (*const big8cw2[3])(SclArgs) = {
+      scl_decode_traj_big_t32_cw2, scl_mc_traj_big_t32_cw2,
+      scl_mc_counters_big_t32_cw2};
   // capacity 32, [kernel + 5 * big]
   static void (*const c32[10])(SclArgs) = {
       scl_decode_c32, scl_decode_traj_c32, scl_mc_traj_c32,
@@ -2431,9 +2599,9 @@ static void (*instance(int kernel, const SclArgs* a, size_t smem))(SclArgs) {
     fn = fast[T / 128][kernel];
   } else if (a->P > 8) fn = c32[kernel + (a->big ? 5 : 0)];
   else {
-    const int T = general_threads(kernel, a);
-    if (T == 0) return nullptr;
-    fn = big8[T / 64][kernel];
+    const int T = general_threads(kernel, a), cw = general_codewords(kernel, a);
+    if (T == 0 || cw == 0) return nullptr;
+    fn = cw == 2 ? big8cw2[kernel - 1] : big8[T / 64][kernel];
   }
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
@@ -2446,7 +2614,8 @@ int scl_launch(int kernel, const SclArgs* a, void* stream) {
   void (*const fn)(SclArgs) = instance(kernel, a, smem);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = scl_block_threads(kernel, a);
-  fn<<<a->B, threads, smem, (cudaStream_t)stream>>>(*a);
+  const int cw = scl_block_codewords(kernel, a);
+  fn<<<(a->B + cw - 1) / cw, threads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -2472,21 +2641,25 @@ int scl_stage_tab_bytes(void) { return (int)sizeof(StageTab); }
 // the op-kind clock: slots then the count of blocks measured
 int scl_clock_slots(void) { return kClkSlots; }
 
+// the stage keys of each slot: g_clock is [stage key][slot], then blocks
+int scl_clock_stages(void) { return kClkStages; }
+
 int scl_clock_reset(void) {
-  static const unsigned long long zero[kClkSlots + 1] = {};
+  static const unsigned long long zero[kClkCells + 1] = {};
   return (int)cudaMemcpyToSymbol(g_clock, zero, sizeof(zero));
 }
 
 int scl_clock_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_clock,
-                                   sizeof(unsigned long long) * (kClkSlots + 1));
+                                   sizeof(unsigned long long) * (kClkCells + 1));
 }
 #endif
 
-// static shared memory of the instance that takes (kernel, P, big)
-int scl_static_smem_bytes(int kernel, int P, int big) {
-  if (arikan8(kernel, P, big)) return (int)sizeof(Fast);
-  return P <= 8 ? (int)sizeof(Small<8>) : (int)sizeof(Small<32>);
+// static shared memory of the instance that runs `kernel` for *a
+int scl_static_smem_bytes(int kernel, const SclArgs* a) {
+  if (arikan8(kernel, a->P, a->big)) return (int)sizeof(Fast);
+  return a->P <= 8 ? general_codewords(kernel, a) * (int)sizeof(Small<8>)
+                   : (int)sizeof(Small<32>);
 }
 
 int scl_decode_max_smem_bytes(void) {

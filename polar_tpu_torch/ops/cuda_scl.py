@@ -21,9 +21,11 @@ trajectory bits packed in words, stage 1 read through the channel row,
 `fast_smem_bytes`), every other spec and the subtree kernel to
 the general body: at P <= 8 one warp a codeword, two where shared memory
 would hold too few one-warp blocks (`general_threads`; the stage tables
-copied to shared memory), at capacity 32 256 threads
-(`general_smem_bytes`). This module builds the op table
-from the fast-SSCL program (ops/program.py) and the per-stage tables,
+copied to shared memory), and for K2, K4 and K5 at list size 1 two
+codewords a warp, a half-warp each, where an SM then holds more codewords
+(`general_codewords`); at capacity 32 256 threads (`general_smem_bytes`).
+This module builds the op table from the fast-SSCL program
+(ops/program.py) and the per-stage tables,
 compiles the source with nvcc at first use into a shared library with a
 plain C interface under build/ at the repository root (git-ignored;
 ops/cuda_build.py), and loads it with ctypes.
@@ -33,9 +35,9 @@ kernel (or the call raises), a CPU tensor to the plain PyTorch version
 (ops/scl.py). `LAUNCHES[name]` counts each kernel's launches.
 
 `clock_build()` sends the launches inside it to the op-kind clock build
-of the same source (`-DSCL_CLOCK`: cycles by op kind of the first blocks,
-`read_clock`). Only sim/kernel_times.py --split and chip_smoke.py's split
-phase load it.
+of the same source (`-DSCL_CLOCK`: cycles by op kind, and by stage in
+the general body, of the first blocks, `read_clock`). Only
+sim/kernel_times.py --split and chip_smoke.py's split phase load it.
 """
 from __future__ import annotations
 
@@ -75,8 +77,9 @@ FAST_STATIC_BYTES = 944
 FAST_REGISTERS = 64
 FAST_WARPS = 65536 // FAST_REGISTERS // 32
 FAST_THREADS = (64, 128)
-# static shared memory of the general body's list capacities 8 and 32
-# (`Small<8>`, `Small<32>` with their fork tables `ForkTable<CAP>`)
+# static shared memory of the general body's list capacities 8 (a
+# codeword's) and 32 (`Small<8>`, `Small<32>` with their fork tables
+# `ForkTable<CAP>`)
 SMALL8_STATIC_BYTES = 1296
 SMALL32_STATIC_BYTES = 10944
 # the general body's capacity-8 instances: registers a thread at their
@@ -89,10 +92,10 @@ SM_SHARED_BYTES = 228 * 1024
 RESERVED_PER_BLOCK = 1024     # shared memory the runtime keeps a block
 SMEM_UNIT = 128               # a block's shared memory is given in these units
 
-# `arikan8`, `fast_threads`, `general_threads`, `fast_smem_bytes`,
-# `general_smem_bytes` and the static sizes model the source's rules and layouts on the host (the
-# launches take the library's own figures); tests/test_torch_cuda.py holds
-# them to the library.
+# `arikan8`, `fast_threads`, `general_threads`, `general_codewords`,
+# `fast_smem_bytes`, `general_smem_bytes` and the static sizes model the
+# source's rules and layouts on the host (the launches take the library's
+# own figures); tests/test_torch_cuda.py holds them to the library.
 
 
 def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
@@ -109,17 +112,63 @@ def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
 BODY_TRELLIS_MAX_R = 8
 
 
+def body_table_lanes(bk: BigKernel, i: int, elements: int, threads: int) -> int:
+    """Lanes G that share a position's tail table of input i in the
+    decode body's `big_down`, at `elements` = P * n positions and `threads`
+    a codeword (16 at two codewords a warp): 16 where the walk takes the
+    quad tables (bit i of `bk.quads`), else 1, doubled while under the
+    threads and the walk and while twice as many still fit the threads."""
+    walk = int(bk.walk[i])
+    G = 16 if (int(bk.quads) >> i) & 1 else 1
+    while G < threads and G < walk and elements * G * 2 <= threads:
+        G *= 2
+    return G
+
+
 def general_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Threads a codeword of the general body on an H100 (the source's
-    `general_threads`): at capacity 32 256; at capacity 8 one warp, or two
+    """Threads a codeword of the general body on an H100: 16 where it
+    decodes two codewords a warp (`general_codewords`), else the source's
+    `general_threads`: at capacity 32 256; at capacity 8 one warp, or two
     where the one-warp blocks an SM's shared memory holds bring fewer than
     BIG8_WARPS warps (decode kernels) or 3/4 of them (the Monte-Carlo
     kernels)."""
+    if general_codewords(spec, list_size, kernel) == 2:
+        return 16
+    return _one_codeword_threads(spec, list_size, kernel)
+
+
+def _one_codeword_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
     if int(list_size) > 8:
         return C32_THREADS
-    blocks = SM_SHARED_BYTES // _block_smem(spec, list_size, kernel)
+    blocks = SM_SHARED_BYTES // (_copy_bytes(spec) + _state_bytes(spec, list_size, kernel)
+                                 + SMALL8_STATIC_BYTES + RESERVED_PER_BLOCK)
     quarters = 3 if kernel in ("scl_mc_traj", "scl_mc_counters") else 4
     return 64 if 4 * blocks < quarters * BIG8_WARPS else 32
+
+
+# the kernels the general body runs two codewords a warp at list size 1
+CW2_KERNELS = ("scl_decode_traj", "scl_mc_traj", "scl_mc_counters")
+
+
+def general_codewords(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Codewords a block of the general body on an H100 (the source's
+    `general_codewords`): two, a half-warp each, for K2, K4 and K5 at list
+    size 1 where an SM then holds more codewords (blocks by its registers,
+    shared memory and SM_MAX_BLOCKS) than at one codeword a block; else
+    one."""
+    if (int(list_size) != 1 or kernel not in CW2_KERNELS
+            or arikan8(spec, list_size, kernel)):
+        return 1
+    T = _one_codeword_threads(spec, 1, kernel)
+    copy, state = _copy_bytes(spec), _state_bytes(spec, 1, kernel)
+
+    def per_sm(threads, block):
+        return min(SM_MAX_BLOCKS, 65536 // (threads * BIG8_REGISTERS),
+                   SM_SHARED_BYTES // (block + RESERVED_PER_BLOCK))
+
+    one = per_sm(T, copy + state + SMALL8_STATIC_BYTES)
+    two = 2 * per_sm(32, copy + 2 * -(-state // 16) * 16 + 2 * SMALL8_STATIC_BYTES)
+    return 2 if two > one else 1
 
 
 @functools.lru_cache(maxsize=1024)
@@ -195,36 +244,59 @@ def leader_warp(slots, warps: int) -> int:
     return next((w for w in range(warps) if slots[w] & 3 == want), 0)
 
 
-def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Dynamic shared memory of the general body (the source's
-    `scl_smem_bytes`): at capacity 8 the m + 1 stage tables (16-aligned,
-    `stage_copy_bytes`), then the LLR buffers, decision bytes, trajectory
-    bits N*P, span perms and suffix indices (Q*P bytes each), the path
-    maps, the channel LLRs and u_true (5N, Monte-Carlo kernels) and the net
-    map (P, scl_subtree)."""
+def _copy_bytes(spec: CodeSpec) -> int:
+    """The m + 1 stage tables a capacity-8 block copies (16-aligned, the
+    source's `stage_copy_bytes`)."""
+    return -(-(len(spec.factors) + 1) * ctypes.sizeof(StageTab) // 16) * 16
+
+
+def _state_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """One codeword's decode state (the source's `codeword_state_bytes`):
+    the LLR buffers, decision bytes, trajectory bits N*P, span perms and
+    suffix indices (Q*P bytes each), the path maps, the channel LLRs and
+    u_true (5N, Monte-Carlo kernels) and the net map (P, scl_subtree)."""
     P = int(list_size)
     _, n_lam, n_dec, n_maps = stage_tables(spec, P)
     Q = len(trajectory_spans(spec, P))
-    tabs = (len(spec.factors) + 1) * ctypes.sizeof(StageTab)
-    copy = -(-tabs // 16) * 16 if P <= 8 else 0
-    return (copy + 4 * n_lam + n_dec + spec.N * P + 2 * Q * P + n_maps
+    return (4 * n_lam + n_dec + spec.N * P + 2 * Q * P + n_maps
             + (5 * spec.N if kernel in ("scl_mc_traj", "scl_mc_counters") else 0)
             + (P if kernel == "scl_subtree" else 0))
+
+
+def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Dynamic shared memory a block of the general body (the source's
+    `scl_smem_bytes`): at capacity 8 the stage tables, then each
+    codeword's state (`_state_bytes`; at two codewords a block each
+    16-aligned); at capacity 32 the state alone."""
+    state = _state_bytes(spec, list_size, kernel)
+    if int(list_size) > 8:
+        return state
+    if general_codewords(spec, list_size, kernel) == 2:
+        return _copy_bytes(spec) + 2 * -(-state // 16) * 16
+    return _copy_bytes(spec) + state
+
+
+def general_static_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+    """Static shared memory a block of the general body: a `Small<8>` a
+    codeword at capacity 8, `Small<32>` at capacity 32."""
+    if int(list_size) > 8:
+        return SMALL32_STATIC_BYTES
+    return general_codewords(spec, list_size, kernel) * SMALL8_STATIC_BYTES
 
 
 def _block_smem(spec: CodeSpec, list_size: int, kernel: str) -> int:
     """Shared memory a capacity-8 block of the general body takes of its
     SM: dynamic, static and what the runtime keeps a block."""
-    return (general_smem_bytes(spec, list_size, kernel) + SMALL8_STATIC_BYTES
-            + RESERVED_PER_BLOCK)
+    return (general_smem_bytes(spec, list_size, kernel)
+            + general_static_bytes(spec, list_size, kernel) + RESERVED_PER_BLOCK)
 
 
 def general_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str) -> int:
     """Blocks of the general body's capacity-8 instance for (spec,
     list_size, kernel) an H100 SM holds, by its layout: the least of the
     SM's 32 blocks, its registers at the launch bounds (BIG8_REGISTERS a
-    thread) and its shared memory."""
-    T = general_threads(spec, list_size, kernel)
+    thread; a block is at least a warp) and its shared memory."""
+    T = max(32, general_threads(spec, list_size, kernel))
     return min(SM_MAX_BLOCKS, BIG8_WARPS * 32 // T,
                SM_SHARED_BYTES // _block_smem(spec, list_size, kernel))
 
@@ -243,6 +315,10 @@ CLOCK_SLOTS = ("setup", "prologue", "DOWN", "UP", "R0", "REP sums",
                "REP fork", "R1/SPC select", "R1/SPC chain", "R1/SPC decide",
                "apply_perm", "inverse", "l>2 last", "l>2 trellis",
                "l>2 table", "epilogue", ROUNDS_SLOT)
+# the stage keys of each slot (the source's kClkStages): the general body's
+# op level, the last key holding the deeper stages; key 0 the set-up,
+# prologue and epilogue
+CLOCK_STAGES = 4
 
 _libs: dict = {}          # clock build? -> loaded library
 _clock = False            # whether launches go to the clock build
@@ -290,10 +366,12 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
     lib.scl_args_bytes.restype = ci
     lib.scl_decode_max_smem_bytes.argtypes = []
     lib.scl_decode_max_smem_bytes.restype = ci
-    lib.scl_static_smem_bytes.argtypes = [ci, ci, ci]
+    lib.scl_static_smem_bytes.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_static_smem_bytes.restype = ci
     lib.scl_block_threads.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_block_threads.restype = ci
+    lib.scl_block_codewords.argtypes = [ci, ctypes.POINTER(SclArgs)]
+    lib.scl_block_codewords.restype = ci
     lib.scl_blocks_per_sm.argtypes = [ci, ctypes.POINTER(SclArgs)]
     lib.scl_blocks_per_sm.restype = ci
     lib.scl_stage_tab_bytes.argtypes = []
@@ -305,12 +383,16 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
                                f" in the library, {ctypes.sizeof(struct)} B here")
     if clock:
         lib.scl_clock_slots.restype = ci
+        lib.scl_clock_stages.restype = ci
         lib.scl_clock_reset.restype = ci
         lib.scl_clock_read.argtypes = [ctypes.c_void_p]
         lib.scl_clock_read.restype = ci
-        if lib.scl_clock_slots() != len(CLOCK_SLOTS):
-            raise RuntimeError(f"{lib.scl_clock_slots()} clock slots in the "
-                               f"library, {len(CLOCK_SLOTS)} here")
+        if (lib.scl_clock_slots(), lib.scl_clock_stages()) != (
+                len(CLOCK_SLOTS), CLOCK_STAGES):
+            raise RuntimeError(f"{lib.scl_clock_slots()} clock slots and "
+                               f"{lib.scl_clock_stages()} stage keys in the "
+                               f"library, {len(CLOCK_SLOTS)} and "
+                               f"{CLOCK_STAGES} here")
     _libs[clock] = lib
     return lib
 
@@ -331,13 +413,21 @@ def clock_build():
 
 
 def read_clock(lib: ctypes.CDLL) -> dict:
-    """{slot: cycles summed over the measured blocks, "blocks": count} of
-    an instrumented library since its last reset (synchronises)."""
-    out = (ctypes.c_ulonglong * (len(CLOCK_SLOTS) + 1))()
+    """{slot: cycles summed over the measured blocks and every stage,
+    "blocks": count, "stages": {stage key: {slot: cycles}} for the keys and
+    slots that counted anything} of an instrumented library since its last
+    reset (synchronises)."""
+    slots = len(CLOCK_SLOTS)
+    out = (ctypes.c_ulonglong * (CLOCK_STAGES * slots + 1))()
     torch.cuda.synchronize()
     if lib.scl_clock_read(ctypes.addressof(out)) != 0:
         raise RuntimeError("scl_clock_read failed")
-    return dict(zip(CLOCK_SLOTS + ("blocks",), (int(v) for v in out)))
+    cells = np.array(out[:-1], np.int64).reshape(CLOCK_STAGES, slots)
+    clk = dict(zip(CLOCK_SLOTS, (int(v) for v in cells.sum(0))))
+    clk["blocks"] = int(out[-1])
+    clk["stages"] = {k: {s: int(c) for s, c in zip(CLOCK_SLOTS, row) if c}
+                     for k, row in enumerate(cells) if row.any()}
+    return clk
 
 
 def stage_tables(spec: CodeSpec, P: int):
@@ -487,11 +577,16 @@ class SclKernels:
         lib = load_library()
         args = self._args(1, device) if args is None else args
         return (lib.scl_smem_bytes(KERNELS[name], ctypes.byref(args)),
-                lib.scl_static_smem_bytes(KERNELS[name], self.P, args.big))
+                lib.scl_static_smem_bytes(KERNELS[name], ctypes.byref(args)))
 
     def block_threads(self, name: str, device: torch.device) -> int:
         """Threads a block of kernel `name`, from the library."""
         return load_library().scl_block_threads(
+            KERNELS[name], ctypes.byref(self._args(1, device)))
+
+    def block_codewords(self, name: str, device: torch.device) -> int:
+        """Codewords a block of kernel `name` decodes, from the library."""
+        return load_library().scl_block_codewords(
             KERNELS[name], ctypes.byref(self._args(1, device)))
 
     def blocks_per_sm(self, name: str, device: torch.device) -> int:

@@ -35,7 +35,9 @@ build of csrc/scl_decode.cu (`-DSCL_CLOCK`, ops/cuda_scl.py
 `clock_build`) and prints the cycles a block spends in each kind of op,
 as thread 0 of the first 128 blocks of each launch sees them; the l > 2
 DOWN ops have slots of their own (the last input, the syndrome trellis,
-the tail table). It also prints the R1/SPC fork rounds a block ran and
+the tail table). `split_by_stage` gives the general body's cycles a block
+by the stage of the op (its level; key 0 the set-up, prologue and
+epilogue). It also prints the R1/SPC fork rounds a block ran and
 the chain's cycles a round: the rounds follow from the op program alone
 (`fork_rounds`), and a clock build that counts them (its `R1/SPC rounds`
 slot) must agree. Beside each decode kernel's split: the threads a block
@@ -194,7 +196,8 @@ def instance_name(spec: CodeSpec, P: int, kernel: str) -> str:
     capacity-8 body's with `_t64` / `_t128` by its threads (the kernel's own
     name in checkouts before that body's second redesign); the general
     body's with `_big` (l > 2 kernels or the subtree kernel), then `_t32` /
-    `_t64` by its threads at capacity 8 or `_c32` at capacity 32."""
+    `_t64` by its threads at capacity 8 (`_t32_cw2` where a warp decodes
+    two codewords) or `_c32` at capacity 32."""
     from polar_tpu_torch.ops import cuda_scl
 
     if cuda_scl.arikan8(spec, P, kernel):
@@ -205,6 +208,9 @@ def instance_name(spec: CodeSpec, P: int, kernel: str) -> str:
     base = kernel + ("_big" if big and kernel != "scl_subtree" else "")
     if P > 8:
         return base + "_c32"
+    codewords = getattr(cuda_scl, "general_codewords", None)
+    if codewords is not None and codewords(spec, P, kernel) == 2:
+        return base + "_t32_cw2"
     return f"{base}_t{cuda_scl.general_threads(spec, P, kernel)}"
 
 
@@ -386,6 +392,8 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
             fn()
             clk = cuda_scl.read_clock(lib)
         blocks = clk.pop("blocks")
+        stages = {key: {s: c for s, c in row.items() if s != rounds_slot}
+                  for key, row in clk.pop("stages").items()}
         counted = clk.pop(rounds_slot, None)
         # every launch measures the same number of blocks
         if counted is not None and counted * launches != rounds * blocks:
@@ -413,6 +421,13 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
                                        if rounds else None),
             "split": {s: {"cycles_per_block": c / blocks, "share": c / total}
                       for s, c in clk.items() if c},
+            "split_by_stage": {
+                f"stage {key}" if key < cuda_scl.CLOCK_STAGES - 1
+                else f"stage {key}+": {
+                    "cycles_per_block": sum(row.values()) / blocks,
+                    "share": sum(row.values()) / total,
+                    "slots": {s: c / blocks for s, c in row.items()}}
+                for key, row in stages.items()},
             "card": card}), flush=True)
 
 

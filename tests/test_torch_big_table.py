@@ -205,6 +205,55 @@ def test_model_matches_jax_maxcorr(l, i, kind):
         assert _same(model_llr(kernel, i, lam, G=G), ref), (G, kind)
 
 
+def _half_warp_groups(kernel, i):
+    """The lane counts G that the decode body's `big_down` gives input i's
+    table at 16 threads a codeword (two codewords a warp), at bch_sc's
+    stage-1 and stage-2 positions (E = 16 and E = 1)."""
+    from polar_tpu_torch.ops import cuda_scl
+    bk = cuda_stage.big_kernel(kernel)
+    return sorted({cuda_scl.body_table_lanes(bk, i, E, 16) for E in (1, 16)})
+
+
+def test_half_warp_groups_of_the_16x16_kernel():
+    """At 16 threads a codeword the 16x16 kernel's table inputs take, at
+    one position (stage 2), G = 16 up to the walk: 16 lanes for inputs 5-9
+    and 10 (quad tables from G = 16 where the host set the bit), 8, 4, 2, 1
+    for inputs 11-14; at 16 positions (stage 1) one lane, or a 16-lane
+    quad group."""
+    from polar_tpu_torch.ops import cuda_scl
+    bk = cuda_stage.big_kernel(build_bch_kernel(16))
+    one = [cuda_scl.body_table_lanes(bk, i, 1, 16) for i in range(5, 15)]
+    assert one == [16] * 6 + [8, 4, 2, 1]
+    for i in range(5, 15):
+        quads = bool((bk.quads >> i) & 1)
+        assert cuda_scl.body_table_lanes(bk, i, 16, 16) == (16 if quads else 1)
+        # a warp a codeword: twice the lanes at one position, up to the walk
+        assert cuda_scl.body_table_lanes(bk, i, 1, 32) == min(32, int(bk.walk[i]))
+
+
+@pytest.mark.parametrize("kind", ["normal", "int", "special"])
+@pytest.mark.parametrize("l,i", _table_cases())
+def test_model_matches_jax_at_half_warp_groups(l, i, kind):
+    """The model's maxima and LLR equal JAX's _maxcorr and _llr_static at
+    the lane counts a 16-lane codeword gives (`_half_warp_groups`: G = 4
+    and 8 among them, which a warp a codeword never took)."""
+    kernel = build_bch_kernel(l)
+    jp = j_kp.StageProcessor(kernel)
+    if jp.backend[i] != "table":
+        jp.backend[i] = "table"
+        jp.tables[i] = j_kp._tail_table(kernel, i)
+    lam = _inputs(kind, l, 700 * l + i)
+    both = np.stack([lam, lam * jp.row_signs[i][None, :, None, None]])
+    ref_m = np.asarray(jp._maxcorr(jnp.asarray(both), i))
+    ref = np.asarray(jp._llr_static(i, jnp.asarray(lam)))
+    w = np.moveaxis(lam, 1, -1).reshape(-1, l)
+    for G in _half_warp_groups(kernel, i):
+        m0, m1 = model_table_max(kernel, i, w, np.zeros(w.shape[0], np.int64), G)
+        for got, r in ((m0, ref_m[0]), (m1, ref_m[1])):
+            assert _same(got.reshape(P, N_POS, B), r), (G, kind)
+        assert _same(model_llr(kernel, i, lam, G=G), ref), (G, kind)
+
+
 @pytest.mark.parametrize("i", [5, 9, 12, 14])
 def test_coset_as_index_xor(i):
     """Prior decisions' coset flips of the output LLRs equal an XOR of the

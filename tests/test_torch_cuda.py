@@ -363,6 +363,98 @@ def test_bch_sc_kernels_on_tied_and_huge_llrs(cuda, L):
                            step.plain_counts((3, 4), 1.0, 1024, noise))
 
 
+def _bch_sc_pairs(cuda):
+    """bch_sc's decoder and step at L = 1 (K2, K4, K5 two codewords a
+    warp), after checking that the library runs them so."""
+    from polar_tpu_torch.models.presets import bch_sc
+    from polar_tpu_torch.ops.mc import build_mc_step
+    from polar_tpu_torch.sim.kernel_times import instance_name
+    spec = bch_sc().spec
+    k = cuda_scl.SclKernels(spec, 1)
+    for name in cuda_scl.KERNELS:
+        two = name in cuda_scl.CW2_KERNELS
+        assert cuda_scl.general_codewords(spec, 1, name) == (2 if two else 1)
+        assert k.block_codewords(name, cuda) == (2 if two else 1), name
+        assert k.block_threads(name, cuda) == 32
+        assert (instance_name(spec, 1, name) == f"{name}_big_t32_cw2") == two
+    return (spec, cuda_scl.SclDecoder(spec, 1, cuda, select=False),
+            build_mc_step(spec, 1, device=cuda))
+
+
+def _nan_equal(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.is_floating_point():
+            assert _same_nan(y, x), i
+        else:
+            assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("B", [8192, 1023])
+def test_bch_sc_two_codewords_a_warp_match_plain(cuda, B):
+    """bch_sc at L = 1: K2, K4 and K5 decode two codewords a warp, a
+    half-warp each, and equal the plain version bit for bit (u, counters,
+    pm) on channel LLRs at 0 dB, integer LLRs (tied positions) and LLRs at
+    +-1e30 and 4e30, at an even batch and an odd one (the last block's
+    second half idle, writing nothing); K4 and K5 on noise of the same
+    kinds and on the in-kernel Philox draw."""
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    spec, dec, step = _bch_sc_pairs(cuda)
+    rng = np.random.default_rng(B)
+    sigma = float(ebn0_to_sigma(0.0, spec.rate))
+    g = rng.standard_normal((B, spec.N))
+    zero_db = (2.0 / sigma ** 2) * (1.0 + sigma * g)      # the all-zero codeword
+    for v in (zero_db, np.round(3.0 * g), _huge(3.0 * g, rng, False)):
+        x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        _equal(dec.kernel(x), dec.plain(x))
+        _same(dec.trajectory(x), dec.plain_trajectory(x))
+    seed = (int(rng.integers(2**32)), int(rng.integers(2**32)))
+    for v in (g, np.round(1.5 * g), np.where(rng.random(g.shape) < 0.3, 1e32, g)):
+        noise = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+        _same(step.trajectory(seed, sigma, B, noise),
+              step.plain_trajectory(seed, sigma, B, noise))
+        assert torch.equal(step.counts(seed, sigma, B, noise),
+                           step.plain_counts(seed, sigma, B, noise))
+    _same(step.trajectory(seed, sigma, B), step.plain_trajectory(seed, sigma, B))
+    assert torch.equal(step.counts(seed, sigma, B), step.plain_counts(seed, sigma, B))
+
+
+def test_bch_sc_two_codewords_a_warp_never_mix(cuda):
+    """A codeword with a +-inf LLR (its l > 2 marginals NaN) shares a warp
+    with a finite one, in either half: the finite codewords still equal the
+    plain version, and each infinite codeword decodes alike beside any
+    neighbour (K2 on LLRs; K4, K5 on noise)."""
+    spec, dec, step = _bch_sc_pairs(cuda)
+    rng = np.random.default_rng(77)
+    B = 1024
+    g = 3.0 * rng.standard_normal((2, B, spec.N))
+    rows = np.arange(B)
+    for first in (0, 1):                  # the infinite codewords' half
+        inf = rows % 2 == first
+        v = g.copy()
+        cols = rng.integers(0, spec.N, (2, B))
+        v[0, inf, cols[0, inf]] = np.inf * np.sign(g[0, inf, cols[0, inf]])
+        v[1, inf] = v[0, inf]              # same infinite rows, other neighbours
+        got = []
+        for side in v:
+            x = torch.as_tensor(side, dtype=torch.float32, device=cuda)
+            fin = torch.as_tensor(~inf, device=cuda)
+            out, ref = dec.kernel(x), dec.plain(x)
+            for f in ("u", "payload", "crc_ok", "pm"):
+                assert torch.equal(getattr(out, f)[fin], getattr(ref, f)[fin]), f
+            tb, tp, pm = dec.trajectory(x)
+            rb, rp, rpm = dec.plain_trajectory(x)
+            assert torch.equal(tb[..., fin], rb[..., fin])
+            assert torch.equal(pm[..., fin], rpm[..., fin])
+            noise = torch.as_tensor(side, dtype=torch.float32, device=cuda)
+            counts = step.counts((5, 6), 0.8, B, noise)
+            assert torch.equal(counts[..., fin],
+                               step.plain_counts((5, 6), 0.8, B, noise)[..., fin])
+            traj = step.trajectory((5, 6), 0.8, B, noise)
+            got.append((out.u[~fin], out.pm[~fin], tb[..., ~fin], pm[..., ~fin],
+                        counts[..., ~fin], traj[0][..., ~fin], traj[2][..., ~fin]))
+        _nan_equal(got[0], got[1])
+
+
 def test_bch_sc_sweep_routes_agree_on_card(cuda):
     from polar_tpu_torch.models.presets import Preset, bch_sc
     from polar_tpu_torch.sim.harness import run_sweep
@@ -501,12 +593,13 @@ def test_capacity32_shared_memory_mirror(cuda):
 
 
 def test_big8_shared_memory_mirror(cuda):
-    """The library's threads and shared memory of the general body's
-    capacity-8 instances == the Python mirror (`general_threads`,
-    `general_smem_bytes`, SMALL8_STATIC_BYTES) at bch_sc, the mixed specs
-    and the golden mixed spec (N=512) for L = 1..8, and the card holds at
-    least the blocks an SM that the layout allows (`general_blocks_per_sm`:
-    16 one-warp blocks at bch_sc)."""
+    """The library's threads, codewords and shared memory of the general
+    body's capacity-8 instances == the Python mirror (`general_threads`,
+    `general_codewords`, `general_smem_bytes`, `general_static_bytes`) at
+    bch_sc, the mixed specs and the golden mixed spec (N=512) for L =
+    1..8, and the card holds at least the blocks an SM that the layout
+    allows (`general_blocks_per_sm`: 16 one-warp blocks at bch_sc, two
+    codewords each at L = 1)."""
     from polar_tpu_torch.models.presets import bch_sc
     gspec = load_golden(ROOT / "results" / "golden_mixed_scl_b128.npz")[0]
     specs = [bch_sc().spec, gspec] + [_mixed(*m) for m in _MIXED]
@@ -514,14 +607,19 @@ def test_big8_shared_memory_mirror(cuda):
         for L in range(1, 9):
             k = cuda_scl.SclKernels(spec, L)
             for name in cuda_scl.KERNELS:
-                assert k.block_threads(name, cuda) == cuda_scl.general_threads(spec, L, name)
+                cw = cuda_scl.general_codewords(spec, L, name)
+                assert k.block_codewords(name, cuda) == cw, (spec.factors, L, name)
+                assert (k.block_threads(name, cuda)
+                        == cw * cuda_scl.general_threads(spec, L, name))
                 dyn, static = k.smem_bytes(name, cuda)
                 assert dyn == cuda_scl.general_smem_bytes(spec, L, name), (spec.factors, L, name)
-                assert static == cuda_scl.SMALL8_STATIC_BYTES
+                assert static == cuda_scl.general_static_bytes(spec, L, name)
+                assert static == cw * cuda_scl.SMALL8_STATIC_BYTES
                 assert (k.blocks_per_sm(name, cuda)
                         >= cuda_scl.general_blocks_per_sm(spec, L, name)), (spec.factors, L, name)
     k = cuda_scl.SclKernels(bch_sc().spec, 1)
     assert k.block_threads("scl_mc_counters", cuda) == 32
+    assert k.block_codewords("scl_mc_counters", cuda) == 2
     assert k.blocks_per_sm("scl_mc_counters", cuda) == 16
 
 

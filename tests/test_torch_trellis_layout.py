@@ -127,6 +127,52 @@ def test_one_pass_matches_jax_two_passes(l, i, kind):
         lanes *= 2
 
 
+def _half_warp_lanes(S: int) -> list[int]:
+    """The lanes the decode body gives a trellis element of S states at 16
+    threads a codeword (two codewords a warp), at bch_sc's stage-1 and
+    stage-2 positions (E = 16 and E = 1)."""
+    return sorted({cuda_stage.trellis_lanes(S, E, 16, cuda_scl.BODY_TRELLIS_MAX_R)
+                   for E in (1, 16)})
+
+
+def test_half_warp_lanes_of_the_16x16_kernel():
+    """At 16 threads a codeword the 16x16 kernel's trellis inputs i = 0..4
+    take 2, 4, 8, 16 and 16 lanes at one position (a warp a codeword: 2,
+    4, 8, 16, 32) and S / 8 (at least one) at 16 positions."""
+    body = cuda_scl.BODY_TRELLIS_MAX_R
+    assert [cuda_stage.trellis_lanes(2 << i, 1, 16, body) for i in range(5)] == [2, 4, 8, 16, 16]
+    assert [cuda_stage.trellis_lanes(2 << i, 1, 32, body) for i in range(5)] == [2, 4, 8, 16, 32]
+    assert [cuda_stage.trellis_lanes(2 << i, 16, 16, body) for i in range(5)] == [1, 1, 1, 2, 4]
+    assert [_half_warp_lanes(2 << i) for i in range(5)] == [[1, 2], [1, 4], [1, 8],
+                                                            [2, 16], [4, 16]]
+
+
+@pytest.mark.parametrize("kind", ["normal", "int", "special"])
+@pytest.mark.parametrize("l,i", _trellis_cases())
+def test_one_pass_matches_jax_at_half_warp_lanes(l, i, kind):
+    """At the lane counts a 16-lane codeword gives (`_half_warp_lanes`),
+    the one pass's alpha[s1] - alpha[0] is JAX's _llr_static, bit for bit,
+    on raw inputs and on the coset-adjusted inputs of prior decisions."""
+    kernel = build_bch_kernel(l)
+    jp = j_kp.StageProcessor(kernel)
+    bk = cuda_stage.big_kernel(kernel)
+    lam = _inputs(kind, l, 900 * l + i)
+    ref = np.asarray(jp._llr_static(i, jnp.asarray(lam)))
+    rng = np.random.default_rng(11 * l + i)
+    dec = rng.integers(0, 2, (l, P, N_POS, B)).astype(np.int8)
+    ref_c = np.asarray(jp.static_llr(i, jnp.asarray(lam), jnp.asarray(dec)))
+    u = np.zeros(dec.shape[1:], np.int64)
+    for c in range(i):
+        u |= dec[c].astype(np.int64) << c
+    flip = np.stack([np.bitwise_count(u & int(bk.kcol[t])) & 1 for t in range(l)], axis=1)
+    adj = np.where(flip == 1, -lam, lam).astype(F32)
+    for lanes in _half_warp_lanes(int(bk.states[i])):
+        llr, _, _ = model_llr(kernel, i, _flat(lam), lanes)
+        assert _same(llr.reshape(P, N_POS, B), ref), lanes
+        llr, _, _ = model_llr(kernel, i, _flat(adj), lanes)
+        assert _same(llr.reshape(P, N_POS, B), ref_c), lanes
+
+
 @pytest.mark.parametrize("i", range(5))
 def test_coset_as_section_sign_flips(i):
     """The decode body's input: raw parent LLRs and prior decisions u_c (c
@@ -218,6 +264,9 @@ def test_rule_constants_match_the_sources():
     body = (csrc / "scl_decode.cu").read_text()
     assert f"constexpr int kTrellisMaxR = {cuda_scl.BODY_TRELLIS_MAX_R};" in body
     assert "trellis_lanes(S, E, T, kTrellisMaxR)" in body
+    # the table's lanes (`body_table_lanes`)
+    assert "int G = bigstage::table_quads(K, i, 16) ? 16 : 1;" in body
+    assert "while (G < T && G < walk && E * G * 2 <= T) G *= 2;" in body
     head = (csrc / "big_stage.cuh").read_text()
     assert "int lanes = S > rmax ? S / rmax : 1;" in head
     assert "while (lanes < S && E * lanes * 2 <= threads) lanes *= 2;" in head
