@@ -1763,7 +1763,7 @@ def main() -> int:
     from polar_tpu_torch.ops.encode import encode
     from polar_tpu_torch.ops.scl import build_scl_decoder
     from polar_tpu_torch.sim.channel import channel_llrs
-    from polar_tpu_torch.sim.golden import load_golden
+    from polar_tpu_torch.sim.golden import jittered_spec, load_golden
     from polar_tpu_torch.sim.harness import wilson_ci
 
     dev = torch.device("cuda")
@@ -1798,29 +1798,20 @@ def main() -> int:
             if any(int(v) for v in re.findall(r"(\d+) bytes spill", line)):
                 raise SystemExit(f"ptxas: the instance {entry} spills: "
                                  f"{line.strip()}")
-    ca_kernels = cuda_scl.SclKernels(ca_scl().spec, 8)
-    print("threads a block: Arikan capacity-8 instances (2x2 kernels, L <= 8; "
-          "`fast_threads`) at ca_scl L=8 "
-          + ", ".join(f"{k} {ca_kernels.block_threads(k, dev)}"
-                      for k in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
-                                "scl_mc_counters"))
-          + f", at arikan_sc L=1 "
-          f"{cuda_scl.SclKernels(get_preset('arikan_sc').spec, 1).block_threads('scl_decode_traj', dev)}"
-          f"; capacity 32 "
-          f"{cuda_scl.SclKernels(ca_scl().spec, 32).block_threads('scl_decode', dev)}")
-    bch8 = get_preset("bch_sc").spec
-    for L in range(1, 9):
-        k8 = cuda_scl.SclKernels(bch8, L)
-        print(f"the general body at bch_sc L={L}: threads, codewords a block, blocks "
-              f"an SM (occupancy API), (dynamic, static shared memory) a block: "
-              + ", ".join(f"{k} {k8.block_threads(k, dev)} {k8.block_codewords(k, dev)} "
-                          f"{k8.blocks_per_sm(k, dev)} {k8.smem_bytes(k, dev)}"
-                          for k in cuda_scl.KERNELS))
-    print("blocks an SM at ca_scl L=8 (dynamic, static shared memory a block): "
-          + ", ".join(f"{k} {ca_kernels.blocks_per_sm(k, dev)} "
-                      f"{ca_kernels.smem_bytes(k, dev)}"
-                      for k in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
-                                "scl_mc_counters")))
+    # the launch plans (ops/cuda_scl.py `launch_plan`): the Arikan body at
+    # ca_scl L=8 and arikan_sc L=1, capacity 32 at (2,)*7 L=32, the general
+    # body at bch_sc
+    c32 = jittered_spec((2,) * 7, 56, CrcSpec(8, 0x07, 0))
+    for name, spec, L in ([("ca_scl", ca_scl().spec, 8), ("arikan_sc", get_preset("arikan_sc").spec, 1),
+                           ("(2,)*7", c32, 32)]
+                          + [("bch_sc", get_preset("bch_sc").spec, L) for L in range(1, 9)]):
+        kern = cuda_scl.SclKernels(spec, L)
+        print(f"launch plans at {name} L={L} (instance, threads and codewords a block, "
+              "blocks an SM by the layout and by the occupancy API, dynamic and static "
+              "shared memory a block): "
+              + ", ".join(f"{p.instance} {p.threads} {p.codewords} {p.blocks_per_sm} "
+                          f"{kern.blocks_per_sm(k, dev)} {p.smem} {p.static}"
+                          for k in cuda_scl.KERNELS for p in [kern.plan(k, dev)]))
 
     if args.multi:
         # ---- 25. the multi-card sweep ----

@@ -32,7 +32,8 @@
 // threads a codeword, stage 1 read through the channel row, packed bits,
 // forks in registers, leader-warp ops; its note below); every
 // other instance runs the general body `scl_body`, whose design the rest
-// of this note describes. `arikan8` is the rule.
+// of this note describes. ops/cuda_scl.py `launch_plan` chooses the
+// instance (`arikan8`: which body).
 //
 // List capacity: every kernel has an instance for P <= 8 and one for
 // P <= 32 (template CAP), chosen at launch. Capacity 32 (K3
@@ -976,15 +977,15 @@ __device__ void big_down(const BigKernel& K, int i, float* out,
 // 6.7k cycles a fork round and the LEAF/REP forks 19% of the block. This
 // design keeps every decision and metric bit for bit (the marginal's
 // arithmetic is `big_stage.cuh`'s) and changes how the block is organised:
-// - One warp a codeword as a rule (`general_threads`): a barrier is a
-//   __syncwarp. The block takes a second warp only where the blocks an
-//   SM's shared memory holds would bring too few warps (the golden mixed
+// - One warp a codeword as a rule (ops/cuda_scl.py `general_threads`): a
+//   barrier is a __syncwarp. The block takes a second warp only where the
+//   blocks an SM's shared memory holds would bring too few warps (the golden mixed
 //   spec, N=512, from L=6 or 7); bch_sc takes one warp at every L. PERF.md
 //   (§6) has the times at 32 and 64 threads and why no wider block is
 //   kept.
 // - At L = 1, K2, K4 and K5 decode two codewords a warp, a half-warp each
-//   (`general_codewords`, the `_cw2` instances), where an SM then holds
-//   more codewords. The op-kind clock by stage (PERF.md §6) put 66% of
+//   (ops/cuda_scl.py `general_codewords`, the `_cw2` instances), where an
+//   SM then holds more codewords. The op-kind clock by stage (PERF.md §6) put 66% of
 //   bch_sc's K5 block in stage 2, one position a step, whose trellis
 //   inputs take 2-16 lanes, whose last tables 1-16 and whose leaves one:
 //   the second codeword fills lanes the first leaves idle, for the same
@@ -1612,7 +1613,8 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 //   and map 1, the same arithmetic, so bit for bit. It saves P*N/2 floats
 //   (16 KB at ca_scl). u_true is kept as bits. (Stage 2 the same way: 8 KB
 //   more, 12-15 blocks an SM, and slower on an H100: not taken.)
-// - Threads a codeword by a rule of the layout (`fast_threads`): 128 while
+// - Threads a codeword by a rule of the layout (ops/cuda_scl.py
+//   `fast_threads`): 128 while
 //   the registers (kFastRegisters a thread) cap the blocks an SM, 64 where
 //   shared memory would hold more 128-thread blocks than the registers.
 //   ca_scl K5 (~26 KB): 8 blocks of 128; K1 (~21 KB): 10 of 64.
@@ -2452,182 +2454,141 @@ SCL_KERNEL(scl_mc_counters_big_c32, kThreads, 2, kMonteCarlo, kCounters, true, 3
 // its pm_in is path-bound, so `pm_sorted` starts false
 SCL_KERNEL(scl_subtree_c32, kThreads, 2, kPathBound, kSubtree, true, 32)
 
+// Every instance above, by name: the kernel it runs (0 scl_decode, 1
+// scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters, 4 scl_subtree), its
+// list capacity, its threads (the launch bounds) and codewords a block,
+// its body (the Arikan `fast_body` or `scl_body`) and whether it takes l >
+// 2 kernels. ops/cuda_scl.py `launch_plan` chooses one by name; the
+// library only launches it.
+struct Instance {
+  const char* name;
+  void (*fn)(SclArgs);
+  int kernel, cap, threads, codewords;
+  bool fast, big;
+};
+#define INSTANCE(NAME, KERNEL, CAP, T, CW, FAST, BIG) \
+  { #NAME, NAME, KERNEL, CAP, T, CW, FAST, BIG }
+const Instance kInstances[] = {
+    INSTANCE(scl_decode_t64, 0, 8, 64, 1, true, false),
+    INSTANCE(scl_decode_traj_t64, 1, 8, 64, 1, true, false),
+    INSTANCE(scl_mc_traj_t64, 2, 8, 64, 1, true, false),
+    INSTANCE(scl_mc_counters_t64, 3, 8, 64, 1, true, false),
+    INSTANCE(scl_decode_t128, 0, 8, 128, 1, true, false),
+    INSTANCE(scl_decode_traj_t128, 1, 8, 128, 1, true, false),
+    INSTANCE(scl_mc_traj_t128, 2, 8, 128, 1, true, false),
+    INSTANCE(scl_mc_counters_t128, 3, 8, 128, 1, true, false),
+    INSTANCE(scl_decode_big_t32, 0, 8, 32, 1, false, true),
+    INSTANCE(scl_decode_traj_big_t32, 1, 8, 32, 1, false, true),
+    INSTANCE(scl_mc_traj_big_t32, 2, 8, 32, 1, false, true),
+    INSTANCE(scl_mc_counters_big_t32, 3, 8, 32, 1, false, true),
+    INSTANCE(scl_subtree_t32, 4, 8, 32, 1, false, true),
+    INSTANCE(scl_decode_big_t64, 0, 8, 64, 1, false, true),
+    INSTANCE(scl_decode_traj_big_t64, 1, 8, 64, 1, false, true),
+    INSTANCE(scl_mc_traj_big_t64, 2, 8, 64, 1, false, true),
+    INSTANCE(scl_mc_counters_big_t64, 3, 8, 64, 1, false, true),
+    INSTANCE(scl_subtree_t64, 4, 8, 64, 1, false, true),
+    INSTANCE(scl_decode_traj_big_t32_cw2, 1, 8, 32, 2, false, true),
+    INSTANCE(scl_mc_traj_big_t32_cw2, 2, 8, 32, 2, false, true),
+    INSTANCE(scl_mc_counters_big_t32_cw2, 3, 8, 32, 2, false, true),
+    INSTANCE(scl_decode_c32, 0, 32, kThreads, 1, false, false),
+    INSTANCE(scl_decode_traj_c32, 1, 32, kThreads, 1, false, false),
+    INSTANCE(scl_mc_traj_c32, 2, 32, kThreads, 1, false, false),
+    INSTANCE(scl_mc_counters_c32, 3, 32, kThreads, 1, false, false),
+    INSTANCE(scl_subtree_c32, 4, 32, kThreads, 1, false, true),
+    INSTANCE(scl_decode_big_c32, 0, 32, kThreads, 1, false, true),
+    INSTANCE(scl_decode_traj_big_c32, 1, 32, kThreads, 1, false, true),
+    INSTANCE(scl_mc_traj_big_c32, 2, 32, kThreads, 1, false, true),
+    INSTANCE(scl_mc_counters_big_c32, 3, 32, kThreads, 1, false, true),
+};
+constexpr int kInstanceCount = (int)(sizeof(kInstances) / sizeof(kInstances[0]));
+
+// Dynamic shared memory a block of instance `in` takes for *a: the Arikan
+// body's `fast_layout`; at capacity 32 one codeword's state; at capacity 8
+// the stage tables, then each codeword's state (16-aligned past the first
+// at two codewords a block).
+size_t layout_smem(const Instance& in, const SclArgs& a) {
+  const bool mc = in.kernel == 2 || in.kernel == 3;
+  if (in.fast) return (size_t)fast_layout(a.N, a.m, a.P, a.Q, mc, a.view1 != 0).total;
+  const int state = codeword_state_bytes(a, mc, in.kernel == 4);
+  if (in.cap == 32) return (size_t)state;
+  return (size_t)stage_copy_bytes(a.m)
+         + (in.codewords == 2 ? 2 * (size_t)((state + 15) & ~15) : (size_t)state);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The instances of the Arikan capacity-8 body: every kernel but the
-// subtree kernel, for specs of 2x2 kernels only at P <= 8.
-static bool arikan8(int kernel, int P, int big) {
-  return kernel < 4 && !big && P <= 8;
+int scl_instance_count(void) { return kInstanceCount; }
+
+// the name of instance i, null out of range
+const char* scl_instance_name(int i) {
+  return i >= 0 && i < kInstanceCount ? kInstances[i].name : nullptr;
 }
 
-// An SM's shared memory, what the runtime keeps a block of it, its
-// registers and its blocks (the device's own limits); false if the device
-// cannot be asked.
-static bool sm_limits(int* smem, int* reserved, int* regs, int* blocks) {
+// dynamic shared memory a block of instance i takes for *a; 0 out of range
+size_t scl_smem_bytes(int i, const SclArgs* a) {
+  return i >= 0 && i < kInstanceCount ? layout_smem(kInstances[i], *a) : 0;
+}
+
+// static shared memory a block of instance i; -1 out of range
+int scl_static_smem_bytes(int i) {
+  if (i < 0 || i >= kInstanceCount) return -1;
+  const Instance& in = kInstances[i];
+  if (in.fast) return (int)sizeof(Fast);
+  return in.cap == 8 ? in.codewords * (int)sizeof(Small<8>) : (int)sizeof(Small<32>);
+}
+
+// Lets instance i take `bytes` of dynamic shared memory a block on the
+// current device.
+int scl_set_smem(int i, int bytes) {
+  if (i < 0 || i >= kInstanceCount) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(kInstances[i].fn,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The current device's SM limits (ops/cuda_scl.py `SmLimits`): shared
+// memory an SM, what the runtime keeps of it a block, registers and blocks
+// an SM, and the most shared memory a block may use.
+int scl_device_limits(int* out) {
+  static const cudaDeviceAttr attrs[5] = {
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor, cudaDevAttrReservedSharedMemoryPerBlock,
+      cudaDevAttrMaxRegistersPerMultiprocessor, cudaDevAttrMaxBlocksPerMultiprocessor,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin};
   int dev = 0;
-  return cudaGetDevice(&dev) == cudaSuccess
-         && cudaDeviceGetAttribute(smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)
-                == cudaSuccess
-         && cudaDeviceGetAttribute(reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)
-                == cudaSuccess
-         && cudaDeviceGetAttribute(regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev)
-                == cudaSuccess
-         && cudaDeviceGetAttribute(blocks, cudaDevAttrMaxBlocksPerMultiprocessor, dev)
-                == cudaSuccess;
+  cudaError_t err = cudaGetDevice(&dev);
+  for (int k = 0; k < 5 && err == cudaSuccess; ++k)
+    err = cudaDeviceGetAttribute(out + k, attrs[k], dev);
+  return (int)err;
 }
 
-// Threads a codeword of the general body for `kernel` on *a at one
-// codeword a block: capacity 32 kThreads; capacity 8 one warp, or two
-// where the one-warp blocks an SM's shared memory holds bring fewer warps
-// than its registers allow at kBig8Registers a thread, W (the device's own
-// limits): fewer than W for the decode kernels, fewer than 3W/4 for the
-// Monte-Carlo kernels (K4, K5), which gained from the second warp only
-// there (PERF.md §6). 0 if the device cannot be asked. ops/cuda_scl.py
-// `general_threads` models it with an H100's limits.
-static int general_threads(int kernel, const SclArgs* a) {
-  if (a->P > 8) return kThreads;
-  int smem = 0, reserved = 0, regs = 0, most = 0;
-  if (!sm_limits(&smem, &reserved, &regs, &most)) return 0;
-  const size_t block = stage_copy_bytes(a->m)
-                       + codeword_state_bytes(*a, kernel == 2 || kernel == 3, kernel == 4)
-                       + sizeof(Small<8>) + reserved;
-  const int blocks = (int)(smem / block);
-  const int quarters = kernel == 2 || kernel == 3 ? 3 : 4;  // of W
-  return 4 * blocks * 32 * kBig8Registers < quarters * regs ? 64 : 32;
-}
-
-// Codewords a block of the general body for `kernel` on *a: two, a
-// half-warp each (the CW = 2 instances), for K2, K4 and K5 at list size 1
-// where an SM then holds more codewords (its blocks by registers, shared
-// memory and count) than at one codeword a block of `general_threads`;
-// else one. At L >= 2 the forks need the whole warp. 0 if the device
-// cannot be asked. ops/cuda_scl.py `general_codewords` models it.
-static int general_codewords(int kernel, const SclArgs* a) {
-  if (a->P != 1 || kernel < 1 || kernel > 3 || arikan8(kernel, a->P, a->big))
-    return 1;
-  int smem = 0, reserved = 0, regs = 0, most = 0;
-  const int T = general_threads(kernel, a);
-  if (T == 0 || !sm_limits(&smem, &reserved, &regs, &most)) return 0;
-  const int copy = stage_copy_bytes(a->m);
-  const int state = codeword_state_bytes(*a, kernel == 2 || kernel == 3, false);
-  auto per_sm = [&](int threads, size_t block) {
-    const int by_regs = regs / (threads * kBig8Registers);
-    const int by_smem = (int)(smem / (block + reserved));
-    return by_regs < by_smem ? (by_regs < most ? by_regs : most)
-                             : (by_smem < most ? by_smem : most);
-  };
-  const int one = per_sm(T, copy + state + sizeof(Small<8>));
-  const int two = 2 * per_sm(32, copy + 2 * ((state + 15) & ~15) + 2 * sizeof(Small<8>));
-  return two > one ? 2 : 1;
-}
-
-// kernel: 0 scl_decode, 1 scl_decode_traj, 2 scl_mc_traj, 3 scl_mc_counters,
-// 4 scl_subtree
-size_t scl_smem_bytes(int kernel, const SclArgs* a) {
-  if (arikan8(kernel, a->P, a->big))
-    return (size_t)fast_layout(a->N, a->m, a->P, a->Q, kernel == 2 || kernel == 3,
-                               a->view1 != 0)
-        .total;
-  const int state = codeword_state_bytes(*a, kernel == 2 || kernel == 3, kernel == 4);
-  if (a->P > 8) return (size_t)state;
-  // capacity 8: the stage tables, then each codeword's state (16-aligned
-  // past the first at two codewords a block)
-  return (size_t)stage_copy_bytes(a->m)
-         + (general_codewords(kernel, a) == 2 ? 2 * (size_t)((state + 15) & ~15)
-                                              : (size_t)state);
-}
-
-// Threads a codeword of the Arikan capacity-8 body for `kernel` on *a: 128
-// while the registers (kFastRegisters a thread) cap the 128-thread blocks
-// an SM, 64 where its shared memory would hold more of them than its
-// registers allow (the device's own limits). 0 if the device cannot be
-// asked. ops/cuda_scl.py `fast_threads` models it with an H100's limits.
-static int fast_threads(int kernel, const SclArgs* a) {
-  int smem = 0, reserved = 0, regs = 0, most = 0;
-  if (!sm_limits(&smem, &reserved, &regs, &most)) return 0;
-  const size_t block = scl_smem_bytes(kernel, a) + sizeof(Fast) + reserved;
-  const int blocks = (int)(smem / block);
-  return blocks * 128 * kFastRegisters > regs ? 64 : 128;
-}
-
-// threads a block of the instance that runs `kernel` for *a
-int scl_block_threads(int kernel, const SclArgs* a) {
-  if (arikan8(kernel, a->P, a->big)) return fast_threads(kernel, a);
-  return general_codewords(kernel, a) == 2 ? 32 : general_threads(kernel, a);
-}
-
-// codewords a block of the instance that runs `kernel` for *a (0 if the
-// device cannot be asked)
-int scl_block_codewords(int kernel, const SclArgs* a) {
-  return arikan8(kernel, a->P, a->big) ? 1 : general_codewords(kernel, a);
-}
-
-// The instance that runs `kernel` for *a, after its shared-memory limit is
-// set; null if *a is out of range.
-static void (*instance(int kernel, const SclArgs* a, size_t smem))(SclArgs) {
-  // the Arikan capacity-8 body, [T / 128][kernel]
-  static void (*const fast[2][4])(SclArgs) = {
-      {scl_decode_t64, scl_decode_traj_t64, scl_mc_traj_t64, scl_mc_counters_t64},
-      {scl_decode_t128, scl_decode_traj_t128, scl_mc_traj_t128,
-       scl_mc_counters_t128}};
-  // capacity 8, [T / 64][kernel]; two codewords a warp, [kernel - 1]
-  static void (*const big8[2][5])(SclArgs) = {
-      {scl_decode_big_t32, scl_decode_traj_big_t32, scl_mc_traj_big_t32,
-       scl_mc_counters_big_t32, scl_subtree_t32},
-      {scl_decode_big_t64, scl_decode_traj_big_t64, scl_mc_traj_big_t64,
-       scl_mc_counters_big_t64, scl_subtree_t64}};
-  static void (*const big8cw2[3])(SclArgs) = {
-      scl_decode_traj_big_t32_cw2, scl_mc_traj_big_t32_cw2,
-      scl_mc_counters_big_t32_cw2};
-  // capacity 32, [kernel + 5 * big]
-  static void (*const c32[10])(SclArgs) = {
-      scl_decode_c32, scl_decode_traj_c32, scl_mc_traj_c32,
-      scl_mc_counters_c32, scl_subtree_c32, scl_decode_big_c32,
-      scl_decode_traj_big_c32, scl_mc_traj_big_c32, scl_mc_counters_big_c32,
-      scl_subtree_c32};
+// Launches instance i over a->B codewords, `codewords` a block of
+// `threads`, with its layout's dynamic shared memory. cudaErrorInvalidValue
+// where i does not run `kernel` at a's list capacity and kernels (l > 2 or
+// not), where `threads` and `codewords` are not the instance's, or where
+// *a is out of the kernels' range.
+int scl_launch(int i, int kernel, int threads, int codewords, const SclArgs* a,
+               void* stream) {
+  if (i < 0 || i >= kInstanceCount) return (int)cudaErrorInvalidValue;
+  const Instance& in = kInstances[i];
   const int maps = a->n_maps + (kernel == 4 ? a->P : 0);
-  if (kernel < 0 || kernel > 4 || a->P < 1 || a->P > 32 || a->W > 32
-      || a->B < 1 || a->N < 2 || a->m < 1 || a->m + 1 > kMaxStages
+  if (in.kernel != kernel || in.cap != (a->P > 8 ? 32 : 8) || (a->big && !in.big)
+      || in.threads != threads || in.codewords != codewords || a->P < 1 || a->P > 32
+      || a->W > 32 || a->B < 1 || a->N < 2 || a->m < 1 || a->m + 1 > kMaxStages
       || (a->P > 8 && maps > kMapsPerThread32 * kThreads))
-    return nullptr;
-  void (*fn)(SclArgs);
-  if (arikan8(kernel, a->P, a->big)) {
-    const int T = fast_threads(kernel, a);
-    if (T == 0) return nullptr;
-    fn = fast[T / 128][kernel];
-  } else if (a->P > 8) fn = c32[kernel + (a->big ? 5 : 0)];
-  else {
-    const int T = general_threads(kernel, a), cw = general_codewords(kernel, a);
-    if (T == 0 || cw == 0) return nullptr;
-    fn = cw == 2 ? big8cw2[kernel - 1] : big8[T / 64][kernel];
-  }
-  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return nullptr;
-  return fn;
-}
-
-int scl_launch(int kernel, const SclArgs* a, void* stream) {
-  const size_t smem = scl_smem_bytes(kernel, a);
-  void (*const fn)(SclArgs) = instance(kernel, a, smem);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const int threads = scl_block_threads(kernel, a);
-  const int cw = scl_block_codewords(kernel, a);
-  fn<<<(a->B + cw - 1) / cw, threads, smem, (cudaStream_t)stream>>>(*a);
+    return (int)cudaErrorInvalidValue;
+  void (*const fn)(SclArgs) = in.fn;
+  fn<<<(a->B + codewords - 1) / codewords, threads, layout_smem(in, *a),
+       (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-// blocks an SM of the instance that runs `kernel` for *a (occupancy API);
-// -1 on error
-int scl_blocks_per_sm(int kernel, const SclArgs* a) {
-  const size_t smem = scl_smem_bytes(kernel, a);
-  void (*const fn)(SclArgs) = instance(kernel, a, smem);
+// blocks an SM of instance i for *a (occupancy API); -1 on error
+int scl_blocks_per_sm(int i, const SclArgs* a) {
   int blocks = 0;
-  if (fn == nullptr
+  if (i < 0 || i >= kInstanceCount
       || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks, fn, scl_block_threads(kernel, a), smem)
+             &blocks, kInstances[i].fn, kInstances[i].threads, layout_smem(kInstances[i], *a))
              != cudaSuccess)
     return -1;
   return blocks;
@@ -2654,20 +2615,5 @@ int scl_clock_read(unsigned long long* out) {
                                    sizeof(unsigned long long) * (kClkCells + 1));
 }
 #endif
-
-// static shared memory of the instance that runs `kernel` for *a
-int scl_static_smem_bytes(int kernel, const SclArgs* a) {
-  if (arikan8(kernel, a->P, a->big)) return (int)sizeof(Fast);
-  return a->P <= 8 ? general_codewords(kernel, a) * (int)sizeof(Small<8>)
-                   : (int)sizeof(Small<32>);
-}
-
-int scl_decode_max_smem_bytes(void) {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
-      != cudaSuccess) return -1;
-  return v;
-}
 
 }  // extern "C"

@@ -14,8 +14,10 @@ per codeword):
                      (`SubtreeKernel`, the subtree route of ops/scl.py).
 
 Each has instances for specs with l > 2 kernels (eBCH, mixed) and for list
-capacities 8 and 32, chosen at launch by a rule of the spec's shape:
-Arikan specs (2x2 kernels only) at P <= 8 go to the Arikan capacity-8 body
+capacities 8 and 32. `launch_plan` chooses the instance, its threads and
+codewords a block and its shared memory, once a (spec, list size, kernel,
+SM limits), by a rule of the spec's shape; the library only launches what
+the plan names (`SclKernels.launch`). Arikan specs (2x2 kernels only) at P <= 8 go to the Arikan capacity-8 body
 (`arikan8`: 64 or 128 threads a codeword by `fast_threads`, decisions and
 trajectory bits packed in words, stage 1 read through the channel row,
 `fast_smem_bytes`), every other spec and the subtree kernel to
@@ -44,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,36 +75,88 @@ C32_THREADS = 256         # the general body's threads a codeword at capacity 32
 _MAX_STAGES = 17
 # static shared memory of the Arikan capacity-8 body (`Fast` in the source)
 FAST_STATIC_BYTES = 944
-# its registers a thread at the launch bounds (kFastRegisters), so warps an
-# SM, and its threads a codeword
+# its registers a thread at the launch bounds, and its threads a codeword
 FAST_REGISTERS = 64
-FAST_WARPS = 65536 // FAST_REGISTERS // 32
 FAST_THREADS = (64, 128)
 # static shared memory of the general body's list capacities 8 (a
 # codeword's) and 32 (`Small<8>`, `Small<32>` with their fork tables
 # `ForkTable<CAP>`)
 SMALL8_STATIC_BYTES = 1296
 SMALL32_STATIC_BYTES = 10944
-# the general body's capacity-8 instances: registers a thread at their
-# launch bounds, so warps an SM; an H100 SM's limits (the library reads
-# the device's own)
+# registers a thread of the general body's instances at their launch
+# bounds: capacity 8 (kBig8Registers), capacity 32 (2 blocks of 256)
 BIG8_REGISTERS = 128
-BIG8_WARPS = 65536 // BIG8_REGISTERS // 32
-SM_MAX_BLOCKS = 32
-SM_SHARED_BYTES = 228 * 1024
-RESERVED_PER_BLOCK = 1024     # shared memory the runtime keeps a block
+C32_REGISTERS = 128
 SMEM_UNIT = 128               # a block's shared memory is given in these units
 
-# `arikan8`, `fast_threads`, `general_threads`, `general_codewords`,
-# `fast_smem_bytes`, `general_smem_bytes` and the static sizes model the
-# source's rules and layouts on the host (the launches take the library's
-# own figures); tests/test_torch_cuda.py holds them to the library.
+
+class SmLimits(NamedTuple):
+    """An SM's limits, which the launch plan reads: its shared memory and
+    what the runtime keeps of it a block, its registers and resident
+    blocks, and the most shared memory a block may use (bytes)."""
+    shared: int
+    reserved: int
+    registers: int
+    blocks: int
+    block_optin: int
+
+
+# an H100's; on the card `device_limits` reads the device's own
+H100 = SmLimits(shared=228 * 1024, reserved=1024, registers=65536, blocks=32,
+                block_optin=232448)
+
+
+class LaunchPlan(NamedTuple):
+    """How a decode kernel launches for one (spec, list size, kernel): the
+    instance (its `__global__` name in the source), threads and codewords a
+    block, dynamic (`smem`) and static shared memory a block, and the
+    blocks an SM holds by the layout."""
+    instance: str
+    threads: int
+    codewords: int
+    smem: int
+    static: int
+    blocks_per_sm: int
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(spec: CodeSpec, list_size: int, kernel: str,
+                limits: SmLimits = H100) -> LaunchPlan:
+    """The one choice of instance, threads, codewords and shared memory
+    for `kernel` on (spec, list_size) at an SM's `limits`: the Arikan
+    capacity-8 body where `arikan8` (`_t64` / `_t128` by `fast_threads`),
+    else the general body (`_big` for l > 2 kernels; `_c32` at capacity
+    32, `_t32_cw2` at two codewords a warp by `general_codewords`, else
+    `_t32` / `_t64` by `general_threads`). Raises ValueError where the
+    block's shared memory exceeds what a block may use."""
+    P = int(list_size)
+    if arikan8(spec, P, kernel):
+        T = fast_threads(spec, P, kernel, limits)
+        plan = LaunchPlan(f"{kernel}_t{T}", T, 1, fast_smem_bytes(spec, P, kernel),
+                          FAST_STATIC_BYTES, fast_blocks_per_sm(spec, P, kernel, limits))
+    else:
+        big = kernel != "scl_subtree" and any(f > 2 for f in spec.factors)
+        cw = general_codewords(spec, P, kernel, limits)
+        T = cw * general_threads(spec, P, kernel, limits)
+        width = "_c32" if P > 8 else "_t32_cw2" if cw == 2 else f"_t{T}"
+        plan = LaunchPlan(kernel + ("_big" if big else "") + width, T, cw,
+                          general_smem_bytes(spec, P, kernel, limits),
+                          general_static_bytes(spec, P, kernel, limits),
+                          general_blocks_per_sm(spec, P, kernel, limits))
+    if plan.smem + plan.static > limits.block_optin:
+        raise ValueError(
+            f"decode state of N={spec.N}, L={P}: {plan.smem} B exceeds the "
+            f"{limits.block_optin} B of shared memory a block may use; decode "
+            "it with build_scl_decoder(..., subtree_backend='pallas', "
+            "big_stage_backend='pallas'), one subtree-kernel launch a depth-1 "
+            "child")
+    return plan
 
 
 def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
     """Whether `kernel` decodes (spec, list_size) with the Arikan
     capacity-8 body: every kernel but scl_subtree, for specs of 2x2
-    kernels only at list sizes <= 8 (the source's `arikan8`)."""
+    kernels only at list sizes <= 8."""
     return (kernel != "scl_subtree" and all(f == 2 for f in spec.factors)
             and int(list_size) <= 8)
 
@@ -125,46 +180,50 @@ def body_table_lanes(bk: BigKernel, i: int, elements: int, threads: int) -> int:
     return G
 
 
-def general_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Threads a codeword of the general body on an H100: 16 where it
-    decodes two codewords a warp (`general_codewords`), else the source's
-    `general_threads`: at capacity 32 256; at capacity 8 one warp, or two
-    where the one-warp blocks an SM's shared memory holds bring fewer than
-    BIG8_WARPS warps (decode kernels) or 3/4 of them (the Monte-Carlo
-    kernels)."""
-    if general_codewords(spec, list_size, kernel) == 2:
+def general_threads(spec: CodeSpec, list_size: int, kernel: str,
+                    limits: SmLimits = H100) -> int:
+    """Threads a codeword of the general body: 16 where it decodes two
+    codewords a warp (`general_codewords`), else at capacity 32 256; at
+    capacity 8 one warp, or two where the one-warp blocks an SM's shared
+    memory holds bring fewer warps than its registers allow at
+    BIG8_REGISTERS a thread (decode kernels) or fewer than 3/4 of them
+    (the Monte-Carlo kernels, which gained from the second warp only
+    there)."""
+    if general_codewords(spec, list_size, kernel, limits) == 2:
         return 16
-    return _one_codeword_threads(spec, list_size, kernel)
+    return _one_codeword_threads(spec, list_size, kernel, limits)
 
 
-def _one_codeword_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
+def _one_codeword_threads(spec: CodeSpec, list_size: int, kernel: str,
+                          limits: SmLimits = H100) -> int:
     if int(list_size) > 8:
         return C32_THREADS
-    blocks = SM_SHARED_BYTES // (_copy_bytes(spec) + _state_bytes(spec, list_size, kernel)
-                                 + SMALL8_STATIC_BYTES + RESERVED_PER_BLOCK)
+    blocks = limits.shared // (_copy_bytes(spec) + _state_bytes(spec, list_size, kernel)
+                               + SMALL8_STATIC_BYTES + limits.reserved)
     quarters = 3 if kernel in ("scl_mc_traj", "scl_mc_counters") else 4
-    return 64 if 4 * blocks < quarters * BIG8_WARPS else 32
+    return 64 if 4 * blocks * 32 * BIG8_REGISTERS < quarters * limits.registers else 32
 
 
 # the kernels the general body runs two codewords a warp at list size 1
 CW2_KERNELS = ("scl_decode_traj", "scl_mc_traj", "scl_mc_counters")
 
 
-def general_codewords(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Codewords a block of the general body on an H100 (the source's
-    `general_codewords`): two, a half-warp each, for K2, K4 and K5 at list
-    size 1 where an SM then holds more codewords (blocks by its registers,
-    shared memory and SM_MAX_BLOCKS) than at one codeword a block; else
-    one."""
+def general_codewords(spec: CodeSpec, list_size: int, kernel: str,
+                      limits: SmLimits = H100) -> int:
+    """Codewords a block of the general body: two, a half-warp each, for
+    K2, K4 and K5 at list size 1 where an SM then holds more codewords
+    (blocks by its registers, shared memory and count) than at one
+    codeword a block; else one (at L >= 2 the forks need the whole
+    warp)."""
     if (int(list_size) != 1 or kernel not in CW2_KERNELS
             or arikan8(spec, list_size, kernel)):
         return 1
-    T = _one_codeword_threads(spec, 1, kernel)
+    T = _one_codeword_threads(spec, 1, kernel, limits)
     copy, state = _copy_bytes(spec), _state_bytes(spec, 1, kernel)
 
     def per_sm(threads, block):
-        return min(SM_MAX_BLOCKS, 65536 // (threads * BIG8_REGISTERS),
-                   SM_SHARED_BYTES // (block + RESERVED_PER_BLOCK))
+        return min(limits.blocks, limits.registers // (threads * BIG8_REGISTERS),
+                   limits.shared // (block + limits.reserved))
 
     one = per_sm(T, copy + state + SMALL8_STATIC_BYTES)
     two = 2 * per_sm(32, copy + 2 * -(-state // 16) * 16 + 2 * SMALL8_STATIC_BYTES)
@@ -206,31 +265,28 @@ def fast_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
     return off + (4 * -(-N // 32) if mc else 0)
 
 
-def _fast_block_smem(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Shared memory a block of the Arikan capacity-8 body takes of its SM:
-    dynamic, static and what the runtime keeps a block."""
-    return (fast_smem_bytes(spec, list_size, kernel) + FAST_STATIC_BYTES
-            + RESERVED_PER_BLOCK)
+def fast_threads(spec: CodeSpec, list_size: int, kernel: str,
+                 limits: SmLimits = H100) -> int:
+    """Threads a codeword of the Arikan capacity-8 body: 128 while the
+    registers (FAST_REGISTERS a thread) cap the 128-thread blocks an SM,
+    64 where its shared memory would hold more of them than the registers
+    allow."""
+    block = fast_smem_bytes(spec, list_size, kernel) + FAST_STATIC_BYTES + limits.reserved
+    blocks = limits.shared // block
+    return 64 if blocks * 128 * FAST_REGISTERS > limits.registers else 128
 
 
-def fast_threads(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Threads a codeword of the Arikan capacity-8 body on an H100 (the
-    source's `fast_threads`): 128 while the registers (FAST_REGISTERS a
-    thread) cap the 128-thread blocks an SM, 64 where its shared memory
-    would hold more of them than the registers allow."""
-    blocks = SM_SHARED_BYTES // _fast_block_smem(spec, list_size, kernel)
-    return 64 if blocks * 128 * FAST_REGISTERS > 65536 else 128
-
-
-def fast_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str) -> int:
+def fast_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str,
+                       limits: SmLimits = H100) -> int:
     """Blocks of the Arikan capacity-8 instance for (spec, list_size,
-    kernel) an H100 SM holds, by its layout: the least of the SM's 32
-    blocks, its registers at the launch bounds and its shared memory, which
-    a block is given in units of SMEM_UNIT bytes."""
-    T = fast_threads(spec, list_size, kernel)
+    kernel) an SM holds, by its layout: the least of the SM's blocks, its
+    registers at the launch bounds and its shared memory, which a block is
+    given in units of SMEM_UNIT bytes."""
+    T = fast_threads(spec, list_size, kernel, limits)
     smem = fast_smem_bytes(spec, list_size, kernel) + FAST_STATIC_BYTES
-    block = -(-smem // SMEM_UNIT) * SMEM_UNIT + RESERVED_PER_BLOCK
-    return min(SM_MAX_BLOCKS, FAST_WARPS * 32 // T, SM_SHARED_BYTES // block)
+    block = -(-smem // SMEM_UNIT) * SMEM_UNIT + limits.reserved
+    return min(limits.blocks, limits.registers // FAST_REGISTERS // T,
+               limits.shared // block)
 
 
 def leader_warp(slots, warps: int) -> int:
@@ -263,42 +319,41 @@ def _state_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
             + (P if kernel == "scl_subtree" else 0))
 
 
-def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+def general_smem_bytes(spec: CodeSpec, list_size: int, kernel: str,
+                       limits: SmLimits = H100) -> int:
     """Dynamic shared memory a block of the general body (the source's
-    `scl_smem_bytes`): at capacity 8 the stage tables, then each
-    codeword's state (`_state_bytes`; at two codewords a block each
-    16-aligned); at capacity 32 the state alone."""
+    `layout_smem`): at capacity 8 the stage tables, then each codeword's
+    state (`_state_bytes`; at two codewords a block each 16-aligned); at
+    capacity 32 the state alone."""
     state = _state_bytes(spec, list_size, kernel)
     if int(list_size) > 8:
         return state
-    if general_codewords(spec, list_size, kernel) == 2:
+    if general_codewords(spec, list_size, kernel, limits) == 2:
         return _copy_bytes(spec) + 2 * -(-state // 16) * 16
     return _copy_bytes(spec) + state
 
 
-def general_static_bytes(spec: CodeSpec, list_size: int, kernel: str) -> int:
+def general_static_bytes(spec: CodeSpec, list_size: int, kernel: str,
+                         limits: SmLimits = H100) -> int:
     """Static shared memory a block of the general body: a `Small<8>` a
     codeword at capacity 8, `Small<32>` at capacity 32."""
     if int(list_size) > 8:
         return SMALL32_STATIC_BYTES
-    return general_codewords(spec, list_size, kernel) * SMALL8_STATIC_BYTES
+    return general_codewords(spec, list_size, kernel, limits) * SMALL8_STATIC_BYTES
 
 
-def _block_smem(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Shared memory a capacity-8 block of the general body takes of its
-    SM: dynamic, static and what the runtime keeps a block."""
-    return (general_smem_bytes(spec, list_size, kernel)
-            + general_static_bytes(spec, list_size, kernel) + RESERVED_PER_BLOCK)
-
-
-def general_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str) -> int:
-    """Blocks of the general body's capacity-8 instance for (spec,
-    list_size, kernel) an H100 SM holds, by its layout: the least of the
-    SM's 32 blocks, its registers at the launch bounds (BIG8_REGISTERS a
-    thread; a block is at least a warp) and its shared memory."""
-    T = max(32, general_threads(spec, list_size, kernel))
-    return min(SM_MAX_BLOCKS, BIG8_WARPS * 32 // T,
-               SM_SHARED_BYTES // _block_smem(spec, list_size, kernel))
+def general_blocks_per_sm(spec: CodeSpec, list_size: int, kernel: str,
+                          limits: SmLimits = H100) -> int:
+    """Blocks of the general body's instance for (spec, list_size, kernel)
+    an SM holds, by its layout: the least of the SM's blocks, its registers
+    at the launch bounds (BIG8_REGISTERS or C32_REGISTERS a thread; a block
+    is at least a warp) and its shared memory (dynamic, static and what the
+    runtime keeps a block)."""
+    T = max(32, general_threads(spec, list_size, kernel, limits))
+    regs = C32_REGISTERS if int(list_size) > 8 else BIG8_REGISTERS
+    block = (general_smem_bytes(spec, list_size, kernel, limits)
+             + general_static_bytes(spec, list_size, kernel, limits) + limits.reserved)
+    return min(limits.blocks, limits.registers // regs // T, limits.shared // block)
 
 
 def max_maps(list_size: int) -> int | None:
@@ -321,6 +376,10 @@ CLOCK_SLOTS = ("setup", "prologue", "DOWN", "UP", "R0", "REP sums",
 CLOCK_STAGES = 4
 
 _libs: dict = {}          # clock build? -> loaded library
+_instances: dict = {}     # clock build? -> {instance name: index}
+# (clock build?, device index, instance index) -> the dynamic shared
+# memory the instance may take there (cudaFuncSetAttribute)
+_smem_set: dict = {}
 _clock = False            # whether launches go to the clock build
 
 
@@ -357,25 +416,20 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
     if clock in _libs:
         return _libs[clock]
     lib = ctypes.CDLL(str(cuda_build.build("scl_decode.cu", clock)))
-    ci = ctypes.c_int
-    lib.scl_launch.argtypes = [ci, ctypes.POINTER(SclArgs), ctypes.c_void_p]
-    lib.scl_launch.restype = ci
-    lib.scl_smem_bytes.argtypes = [ci, ctypes.POINTER(SclArgs)]
-    lib.scl_smem_bytes.restype = ctypes.c_size_t
-    lib.scl_args_bytes.argtypes = []
-    lib.scl_args_bytes.restype = ci
-    lib.scl_decode_max_smem_bytes.argtypes = []
-    lib.scl_decode_max_smem_bytes.restype = ci
-    lib.scl_static_smem_bytes.argtypes = [ci, ctypes.POINTER(SclArgs)]
-    lib.scl_static_smem_bytes.restype = ci
-    lib.scl_block_threads.argtypes = [ci, ctypes.POINTER(SclArgs)]
-    lib.scl_block_threads.restype = ci
-    lib.scl_block_codewords.argtypes = [ci, ctypes.POINTER(SclArgs)]
-    lib.scl_block_codewords.restype = ci
-    lib.scl_blocks_per_sm.argtypes = [ci, ctypes.POINTER(SclArgs)]
-    lib.scl_blocks_per_sm.restype = ci
-    lib.scl_stage_tab_bytes.argtypes = []
-    lib.scl_stage_tab_bytes.restype = ci
+    ci, args = ctypes.c_int, ctypes.POINTER(SclArgs)
+    for name, argtypes, restype in (
+            ("scl_launch", [ci, ci, ci, ci, args, ctypes.c_void_p], ci),
+            ("scl_instance_count", [], ci),
+            ("scl_instance_name", [ci], ctypes.c_char_p),
+            ("scl_smem_bytes", [ci, args], ctypes.c_size_t),
+            ("scl_static_smem_bytes", [ci], ci),
+            ("scl_set_smem", [ci, ci], ci),
+            ("scl_device_limits", [ctypes.POINTER(ci)], ci),
+            ("scl_blocks_per_sm", [ci, args], ci),
+            ("scl_args_bytes", [], ci),
+            ("scl_stage_tab_bytes", [], ci)):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = restype
     for name, struct in (("scl_args_bytes", SclArgs),
                          ("scl_stage_tab_bytes", StageTab)):
         if getattr(lib, name)() != ctypes.sizeof(struct):
@@ -394,7 +448,27 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
                                f"library, {len(CLOCK_SLOTS)} and "
                                f"{CLOCK_STAGES} here")
     _libs[clock] = lib
+    _instances[clock] = {lib.scl_instance_name(i).decode(): i
+                         for i in range(lib.scl_instance_count())}
     return lib
+
+
+def instance_index(instance: str) -> int:
+    """The index of a named instance in the table of the library that
+    launches go to."""
+    load_library()
+    return _instances[_clock][instance]
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> SmLimits:
+    """The SM limits of CUDA device `index`, read from it once."""
+    out = (ctypes.c_int * len(SmLimits._fields))()
+    with torch.cuda.device(index):
+        err = load_library().scl_device_limits(out)
+    if err != 0:
+        raise RuntimeError(f"scl_device_limits failed: CUDA error {err}")
+    return SmLimits(*out)
 
 
 @contextlib.contextmanager
@@ -540,6 +614,7 @@ class SclKernels:
         self.P = int(list_size)
         self.tables: dict | None = None
         self._dev_tables: dict = {}
+        self._plans: dict = {}
 
     def device_tables(self, device: torch.device) -> dict:
         key = str(device)
@@ -570,53 +645,63 @@ class SclKernels:
                        n_dec=t["n_dec"], n_maps=t["n_maps"], big=t["big"],
                        view1=t["view1"], **fields)
 
-    def smem_bytes(self, name: str, device: torch.device,
-                   args: SclArgs | None = None) -> tuple[int, int]:
-        """(dynamic, static) shared memory a block of kernel `name` takes,
-        from the library."""
-        lib = load_library()
-        args = self._args(1, device) if args is None else args
-        return (lib.scl_smem_bytes(KERNELS[name], ctypes.byref(args)),
-                lib.scl_static_smem_bytes(KERNELS[name], ctypes.byref(args)))
+    def plan(self, name: str, device: torch.device) -> LaunchPlan:
+        """The launch plan of kernel `name` on `device` (its own SM limits)."""
+        return launch_plan(self.spec, self.P, name, device_limits(_device_index(device)))
+
+    def smem_bytes(self, name: str, device: torch.device) -> tuple[int, int]:
+        """(dynamic, static) shared memory a block of kernel `name` takes."""
+        plan = self.plan(name, device)
+        return plan.smem, plan.static
 
     def block_threads(self, name: str, device: torch.device) -> int:
-        """Threads a block of kernel `name`, from the library."""
-        return load_library().scl_block_threads(
-            KERNELS[name], ctypes.byref(self._args(1, device)))
+        """Threads a block of kernel `name`."""
+        return self.plan(name, device).threads
 
     def block_codewords(self, name: str, device: torch.device) -> int:
-        """Codewords a block of kernel `name` decodes, from the library."""
-        return load_library().scl_block_codewords(
-            KERNELS[name], ctypes.byref(self._args(1, device)))
+        """Codewords a block of kernel `name` decodes."""
+        return self.plan(name, device).codewords
 
     def blocks_per_sm(self, name: str, device: torch.device) -> int:
         """Blocks of kernel `name` an SM holds at once (the occupancy API)."""
+        _, index = self._ready(name, device)
         with torch.cuda.device(device):
             return load_library().scl_blocks_per_sm(
-                KERNELS[name], ctypes.byref(self._args(1, device)))
+                index, ctypes.byref(self._args(1, device)))
+
+    def _ready(self, name: str, device: torch.device) -> tuple[LaunchPlan, int]:
+        """(plan, instance index) of kernel `name` on `device`, its instance
+        let take the plan's shared memory there (once a device, and again
+        only for a plan that needs more)."""
+        dev = _device_index(device)
+        key = (name, dev, _clock)
+        if key not in self._plans:
+            plan = launch_plan(self.spec, self.P, name, device_limits(dev))
+            index = instance_index(plan.instance)
+            where = (_clock, dev, index)
+            if _smem_set.get(where, -1) < plan.smem:
+                with torch.cuda.device(dev):
+                    err = load_library().scl_set_smem(index, plan.smem)
+                if err != 0:
+                    raise RuntimeError(f"{plan.instance}: cudaFuncSetAttribute "
+                                       f"failed: CUDA error {err}")
+                _smem_set[where] = plan.smem
+            self._plans[key] = plan, index
+        return self._plans[key]
 
     def launch(self, name: str, batch: int, device: torch.device,
                **fields) -> None:
         """Launch kernel `name` over `batch` codewords on the device's
-        current stream. `fields` are the SclArgs entries of this kernel:
-        tensors for the pointers, numbers for the scalars."""
-        lib = load_library()
+        current stream, as its launch plan says. `fields` are the SclArgs
+        entries of this kernel: tensors for the pointers, numbers for the
+        scalars."""
+        plan, index = self._ready(name, device)
         args = self._args(batch, device, **fields)
-        smem, static = self.smem_bytes(name, device, args)
-        # the launch (and its cudaFuncSetAttribute) acts on the current
-        # device: make it the tensors' device
+        # the launch acts on the current device: make it the tensors' device
         with torch.cuda.device(device):
-            limit = lib.scl_decode_max_smem_bytes()
-            if smem + static > limit:
-                raise ValueError(
-                    f"decode state of N={self.spec.N}, L={self.P}: {smem} B "
-                    f"exceeds the {limit} B of shared memory a block may "
-                    "use; decode it "
-                    "with build_scl_decoder(..., subtree_backend='pallas', "
-                    "big_stage_backend='pallas'), one subtree-kernel launch "
-                    "a depth-1 child")
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.scl_launch(KERNELS[name], ctypes.byref(args), stream)
+            err = load_library().scl_launch(index, KERNELS[name], plan.threads,
+                                            plan.codewords, ctypes.byref(args), stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
@@ -777,6 +862,12 @@ class SubtreeKernel:
         bits, perms, pm_out = trajectory_layout(out)
         return (bits, perms, netp.T.to(torch.int64),
                 xblk.permute(1, 2, 0).contiguous(), pm_out)
+
+
+def _device_index(device) -> int:
+    """The index of a CUDA device (the current one for a bare "cuda")."""
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
 def _on_cpu(x: torch.Tensor) -> bool:

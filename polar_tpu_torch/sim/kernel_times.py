@@ -40,8 +40,9 @@ by the stage of the op (its level; key 0 the set-up, prologue and
 epilogue). It also prints the R1/SPC fork rounds a block ran and
 the chain's cycles a round: the rounds follow from the op program alone
 (`fork_rounds`), and a clock build that counts them (its `R1/SPC rounds`
-slot) must agree. Beside each decode kernel's split: the threads a block
-and the blocks an SM (the occupancy API) of the instance that ran, and
+slot) must agree. Beside each decode kernel's split: the instance,
+threads and codewords a block and shared memory of its launch plan
+(`occupancy`), the blocks an SM (the occupancy API), and
 its registers and spilled bytes from ptxas's report of the main build
 (`ptxas_report`). `--only` picks the runs (`ca_scl`, `bch_sc`, `L32`,
 `mixed_scl32`).
@@ -192,14 +193,18 @@ def ptxas_report(text: str) -> dict:
 
 
 def instance_name(spec: CodeSpec, P: int, kernel: str) -> str:
-    """The library's instance that runs `kernel` for (spec, P): the Arikan
-    capacity-8 body's with `_t64` / `_t128` by its threads (the kernel's own
-    name in checkouts before that body's second redesign); the general
-    body's with `_big` (l > 2 kernels or the subtree kernel), then `_t32` /
-    `_t64` by its threads at capacity 8 (`_t32_cw2` where a warp decodes
-    two codewords) or `_c32` at capacity 32."""
+    """The library's instance that runs `kernel` for (spec, P) on an H100:
+    its launch plan's (`cuda_scl.launch_plan`). In checkouts without one,
+    the name rebuilt from their rule: the Arikan capacity-8 body's with
+    `_t64` / `_t128` by its threads (the kernel's own name before that
+    body's second redesign); the general body's with `_big` (l > 2 kernels
+    or the subtree kernel), then `_t32` / `_t64` by its threads at capacity
+    8 (`_t32_cw2` where a warp decodes two codewords) or `_c32` at capacity
+    32."""
     from polar_tpu_torch.ops import cuda_scl
 
+    if hasattr(cuda_scl, "launch_plan"):
+        return cuda_scl.launch_plan(spec, P, kernel).instance
     if cuda_scl.arikan8(spec, P, kernel):
         # by threads a codeword since the body's second redesign
         threads = getattr(cuda_scl, "fast_threads", None)
@@ -212,6 +217,23 @@ def instance_name(spec: CodeSpec, P: int, kernel: str) -> str:
     if codewords is not None and codewords(spec, P, kernel) == 2:
         return base + "_t32_cw2"
     return f"{base}_t{cuda_scl.general_threads(spec, P, kernel)}"
+
+
+def occupancy(kern, kernel: str, dev) -> dict:
+    """Instance, threads and codewords a block, blocks an SM (occupancy
+    API) and (dynamic, static) shared memory of `kernel` on the SclKernels
+    `kern`: its launch plan's on `dev`, or in checkouts without one the
+    library's answers and `instance_name`."""
+    if hasattr(kern, "plan"):
+        plan = kern.plan(kernel, dev)
+        return {"instance": plan.instance, "threads": plan.threads,
+                "codewords": plan.codewords,
+                "blocks_per_sm": kern.blocks_per_sm(kernel, dev),
+                "smem_bytes": [plan.smem, plan.static]}
+    return {"instance": instance_name(kern.spec, kern.P, kernel),
+            "threads": kern.block_threads(kernel, dev),
+            "blocks_per_sm": kern.blocks_per_sm(kernel, dev),
+            "smem_bytes": list(kern.smem_bytes(kernel, dev))}
 
 
 def _mixed_capture(dev, B: int):
@@ -402,17 +424,12 @@ def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
                                f"{rounds * blocks / launches}")
         total = sum(clk.values())
         per_block = rounds / launches
-        occupancy = {}
+        occ = {}
         if shape is not None:
-            kern = cuda_scl.SclKernels(*shape)
-            inst = instance_name(*shape, k)
-            occupancy = dict({"instance": inst,
-                              "threads": kern.block_threads(k, dev),
-                              "blocks_per_sm": kern.blocks_per_sm(k, dev),
-                              "smem_bytes": kern.smem_bytes(k, dev)},
-                             **ptxas.get(inst, {}))
+            occ = occupancy(cuda_scl.SclKernels(*shape), k, dev)
+            occ.update(ptxas.get(occ["instance"], {}))
         print(json.dumps({
-            "preset": preset, "kernel": k, "batch": batch, **occupancy,
+            "preset": preset, "kernel": k, "batch": batch, **occ,
             "blocks_measured": blocks,
             "cycles_per_block": total / blocks,
             "fork_rounds_per_block": per_block,
@@ -445,9 +462,8 @@ def slots(dev, card: str, spin: int = 2_000_000) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     spec = get_preset("ca_scl").spec
     for kernel in ("scl_mc_counters", "scl_decode"):
-        T = cuda_scl.fast_threads(spec, 8, kernel)
-        per_sm = cuda_scl.fast_blocks_per_sm(spec, 8, kernel)
-        smem = cuda_scl.fast_smem_bytes(spec, 8, kernel) + cuda_scl.FAST_STATIC_BYTES
+        plan = cuda_scl.SclKernels(spec, 8).plan(kernel, dev)
+        T, per_sm, smem = plan.threads, plan.blocks_per_sm, plan.smem + plan.static
         W, B = T // 32, sms * per_sm
         out = torch.zeros(B * W * 2, dtype=torch.int32, device=dev)
         if lib.warp_slots_launch(out.data_ptr(), B, T, smem, spin) != 0:

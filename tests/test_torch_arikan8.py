@@ -1,6 +1,6 @@
 """The Arikan capacity-8 body's second Hopper design (csrc/scl_decode.cu
 `fast_body`: K1, K2, K4, K5 of Arikan specs at L <= 8), on the CPU: its
-layout and threads rule through their Python mirrors (ops/cuda_scl.py
+layout and threads rule, parts of the launch plan (ops/cuda_scl.py
 `fast_smem_bytes`, `fast_threads`, `fast_blocks_per_sm`, `stage1_view`),
 and plain models of the three rules the body adopted, held against the
 plain decoder's own values (ops/scl.py) and JAX's `lax.top_k`:

@@ -1,6 +1,6 @@
 """The general body's list capacity 8 (csrc/scl_decode.cu `scl_body` at
 P <= 8: the l > 2 instances of K1, K2, K4, K5 and the subtree kernel K3):
-its rule of threads a codeword and the Python mirrors of its layout
+its rule of threads a codeword and its layout, parts of the launch plan
 (ops/cuda_scl.py), and the op-kind split's `--only bch_sc`.
 
 The instances run at 128 registers a thread, so an SM holds 16 of their
@@ -10,7 +10,7 @@ tables copied there, the decode state, `Small<8>`) bring fewer than those
 16 warps. At list size 1, K2, K4 and K5 decode two codewords a warp, a
 half-warp each, where an SM then holds more codewords
 (`general_codewords`). A thread permutes whole path maps, so capacity
-8 has no bound on the maps. The card holds the mirrors to the library
+8 has no bound on the maps. The card holds the plans to the library
 (tests/test_torch_cuda.py `test_big8_shared_memory_mirror`).
 """
 import ctypes
@@ -27,6 +27,9 @@ from polar_tpu_torch.sim import kernel_times
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KERNELS = tuple(cuda_scl.KERNELS)
+H100 = cuda_scl.H100
+# warps an H100 SM's registers allow at the capacity-8 instances' launch bounds
+BIG8_WARPS = H100.registers // cuda_scl.BIG8_REGISTERS // 32
 CRC8 = CrcSpec(8, 0x07, 0)
 # tests/test_torch_cuda.py `_MIXED`
 MIXED = [((16,), 6, None), ((4, 4), 6, None), ((8, 2, 4), 30, CRC8),
@@ -80,9 +83,9 @@ def test_general_threads_is_the_least_that_fills_the_sm(L):
                 assert T == 16
                 continue
             block = (cuda_scl.general_smem_bytes(spec, L, kernel)
-                     + cuda_scl.SMALL8_STATIC_BYTES + cuda_scl.RESERVED_PER_BLOCK)
-            blocks = cuda_scl.SM_SHARED_BYTES // block
-            least = cuda_scl.BIG8_WARPS * (
+                     + cuda_scl.SMALL8_STATIC_BYTES + H100.reserved)
+            blocks = H100.shared // block
+            least = BIG8_WARPS * (
                 3 if kernel in ("scl_mc_traj", "scl_mc_counters") else 4) / 4
             assert T in (32, 64)
             assert T == 64 or blocks >= least
@@ -138,7 +141,7 @@ def test_layout_fills_the_warps_an_sm(spec_args):
     registers allow (BIG8_REGISTERS a thread): 16 one-warp blocks, of two
     codewords each (a half-warp a codeword) for K2, K4 and K5 at L = 1."""
     spec = get_preset("bch_sc").spec if spec_args is None else _mixed(*spec_args)
-    assert cuda_scl.BIG8_WARPS == 16
+    assert BIG8_WARPS == 16
     for L in range(1, 9):
         for kernel in KERNELS:
             T = cuda_scl.general_threads(spec, L, kernel)
@@ -200,13 +203,13 @@ def test_general_codewords_rule(L):
             T = cuda_scl._one_codeword_threads(spec, L, kernel)
             copy = cuda_scl._copy_bytes(spec)
             state = cuda_scl._state_bytes(spec, L, kernel)
-            one = min(cuda_scl.SM_MAX_BLOCKS, cuda_scl.BIG8_WARPS * 32 // T,
-                      cuda_scl.SM_SHARED_BYTES // (copy + state + cuda_scl.SMALL8_STATIC_BYTES
-                                                   + cuda_scl.RESERVED_PER_BLOCK))
-            two = 2 * min(cuda_scl.SM_MAX_BLOCKS, cuda_scl.BIG8_WARPS,
-                          cuda_scl.SM_SHARED_BYTES // (copy + 2 * -(-state // 16) * 16
-                                                       + 2 * cuda_scl.SMALL8_STATIC_BYTES
-                                                       + cuda_scl.RESERVED_PER_BLOCK))
+            one = min(H100.blocks, BIG8_WARPS * 32 // T,
+                      H100.shared // (copy + state + cuda_scl.SMALL8_STATIC_BYTES
+                                      + H100.reserved))
+            two = 2 * min(H100.blocks, BIG8_WARPS,
+                          H100.shared // (copy + 2 * -(-state // 16) * 16
+                                          + 2 * cuda_scl.SMALL8_STATIC_BYTES
+                                          + H100.reserved))
             assert cw == (2 if two > one else 1)
     bch, gold = specs[:2]
     if L == 1:
@@ -231,8 +234,8 @@ def test_two_codeword_layout_at_bch_sc():
         assert cuda_scl.general_smem_bytes(spec, 1, kernel) == copy + 2 * region
         assert cuda_scl.general_static_bytes(spec, 1, kernel) == 2 * cuda_scl.SMALL8_STATIC_BYTES
         block = (cuda_scl.general_smem_bytes(spec, 1, kernel)
-                 + cuda_scl.general_static_bytes(spec, 1, kernel) + cuda_scl.RESERVED_PER_BLOCK)
-        assert cuda_scl.SM_SHARED_BYTES // block >= 16
+                 + cuda_scl.general_static_bytes(spec, 1, kernel) + H100.reserved)
+        assert H100.shared // block >= 16
         assert cuda_scl.general_smem_bytes(spec, 2, kernel) == copy + cuda_scl._state_bytes(
             spec, 2, kernel)
         assert cuda_scl.general_static_bytes(spec, 2, kernel) == cuda_scl.SMALL8_STATIC_BYTES

@@ -11,6 +11,7 @@ The kernels and the plain versions sum in the same fixed order and draw
 the same Philox words, so every output, pm included, must be equal bit
 for bit.
 """
+import ctypes
 import pathlib
 
 import numpy as np
@@ -569,54 +570,94 @@ def test_capacity32_kernels_match_plain(cuda, factors, K, crc, L):
                            step.plain_counts((7, 8), 0.8, 256, noise))
 
 
+def _launch_once(k, name, cuda, B=3):
+    """Launch kernel `name` of the SclKernels `k` once over B codewords of
+    random inputs (what it decodes does not matter here)."""
+    spec, P, N = k.spec, k.P, k.spec.N
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    if name == "scl_mc_counters":
+        f = {"counters": torch.empty((2, B), dtype=torch.int32, device=cuda)}
+    elif name == "scl_decode":
+        f = {"u": torch.empty((B, N), dtype=torch.int8, device=cuda),
+             "pm": torch.empty(B, device=cuda), "ok": torch.empty(B, dtype=torch.bool, device=cuda)}
+    else:
+        f = cuda_scl.trajectory_outputs(spec, P, len(cuda_scl.trajectory_spans(spec, P)), B,
+                                        cuda, mc=name == "scl_mc_traj")
+    if name in ("scl_decode", "scl_decode_traj"):
+        f["llr"] = torch.randn((B, N), generator=gen, device=cuda)
+    elif name == "scl_subtree":
+        f.update(llr=torch.randn((B, P, N), generator=gen, device=cuda),
+                 pm_in=torch.zeros((B, P), device=cuda),
+                 netp=torch.empty((B, P), dtype=torch.uint8, device=cuda),
+                 xblk=torch.empty((B, P, N), dtype=torch.int8, device=cuda))
+    else:
+        f.update(noise=None, seed0=1, seed1=2, sigma=0.8)
+    k.launch(name, B, cuda, **f)
+
+
+def _plans_hold(cases, cuda):
+    """For each (SclKernels, kernel name) of `cases`, on the card: the
+    library launches the instance its launch plan names (its table's row
+    of that name, which takes the plan's kernel, capacity, threads and
+    codewords, or the launch raises), with the plan's dynamic shared memory
+    (`scl_smem_bytes`, the library's layout) and static shared memory, and
+    the occupancy API gives at least the plan's blocks an SM."""
+    lib = cuda_scl.load_library()
+    for k, name in cases:
+        plan = k.plan(name, cuda)
+        where = (k.spec.factors, k.P, name)
+        i = cuda_scl.instance_index(plan.instance)
+        assert lib.scl_instance_name(i).decode() == plan.instance, where
+        before = cuda_scl.LAUNCHES[name]
+        _launch_once(k, name, cuda)
+        assert cuda_scl.LAUNCHES[name] == before + 1, where
+        assert lib.scl_smem_bytes(i, ctypes.byref(k._args(1, cuda))) == plan.smem, where
+        assert lib.scl_static_smem_bytes(i) == plan.static, where
+        assert k.blocks_per_sm(name, cuda) >= plan.blocks_per_sm, where
+    torch.cuda.synchronize()
+
+
 def test_capacity32_shared_memory_mirror(cuda):
-    """The library's shared memory of the capacity-32 instances == the
-    Python mirror (`general_smem_bytes`, SMALL32_STATIC_BYTES), and K3
+    """The capacity-32 instances launch as their plans say (`_plans_hold`),
+    with `Small<32>` (SMALL32_STATIC_BYTES) of static shared memory, and K3
     holds 2 blocks an SM on every mixed_scl32 child at L=32."""
     from polar_tpu_torch.models.presets import mixed_scl32
     from polar_tpu_torch.ops.program import build_program, subtree_items, subtree_spec
+    cases = []
     for factors, K, crc in (((2,) * 7, 56, CrcSpec(8, 0x07, 0)),
                             ((16, 2, 2), 20, None)):
         spec = _mixed(factors, K, crc)
         for L in (9, 32):
             k = cuda_scl.SclKernels(spec, L)
-            for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
-                         "scl_mc_counters", "scl_subtree"):
-                dyn, static = k.smem_bytes(name, cuda)
-                assert dyn == cuda_scl.general_smem_bytes(spec, L, name), (factors, L, name)
-                assert static == cuda_scl.SMALL32_STATIC_BYTES
+            cases += [(k, name) for name in cuda_scl.KERNELS]
+            for name in cuda_scl.KERNELS:
+                assert k.smem_bytes(name, cuda)[1] == cuda_scl.SMALL32_STATIC_BYTES
     spec = mixed_scl32().spec
     for it in subtree_items(build_program(spec, scl=True), spec):
         if it[0] == "sub":
             k = cuda_scl.SclKernels(subtree_spec(spec, it[2]), 32)
+            cases.append((k, "scl_subtree"))
             assert k.blocks_per_sm("scl_subtree", cuda) == 2, it[1]
+    _plans_hold(cases, cuda)
 
 
 def test_big8_shared_memory_mirror(cuda):
-    """The library's threads, codewords and shared memory of the general
-    body's capacity-8 instances == the Python mirror (`general_threads`,
-    `general_codewords`, `general_smem_bytes`, `general_static_bytes`) at
-    bch_sc, the mixed specs and the golden mixed spec (N=512) for L =
-    1..8, and the card holds at least the blocks an SM that the layout
-    allows (`general_blocks_per_sm`: 16 one-warp blocks at bch_sc, two
-    codewords each at L = 1)."""
+    """The general body's capacity-8 instances launch as their plans say
+    (`_plans_hold`) at bch_sc, the mixed specs and the golden mixed spec
+    (N=512) for L = 1..8, a `Small<8>` a codeword of static shared memory;
+    bch_sc's K5 at L = 1 holds 16 blocks of two codewords an SM."""
     from polar_tpu_torch.models.presets import bch_sc
     gspec = load_golden(ROOT / "results" / "golden_mixed_scl_b128.npz")[0]
     specs = [bch_sc().spec, gspec] + [_mixed(*m) for m in _MIXED]
+    cases = []
     for spec in specs:
         for L in range(1, 9):
             k = cuda_scl.SclKernels(spec, L)
+            cases += [(k, name) for name in cuda_scl.KERNELS]
             for name in cuda_scl.KERNELS:
-                cw = cuda_scl.general_codewords(spec, L, name)
-                assert k.block_codewords(name, cuda) == cw, (spec.factors, L, name)
-                assert (k.block_threads(name, cuda)
-                        == cw * cuda_scl.general_threads(spec, L, name))
-                dyn, static = k.smem_bytes(name, cuda)
-                assert dyn == cuda_scl.general_smem_bytes(spec, L, name), (spec.factors, L, name)
-                assert static == cuda_scl.general_static_bytes(spec, L, name)
-                assert static == cw * cuda_scl.SMALL8_STATIC_BYTES
-                assert (k.blocks_per_sm(name, cuda)
-                        >= cuda_scl.general_blocks_per_sm(spec, L, name)), (spec.factors, L, name)
+                plan = k.plan(name, cuda)
+                assert plan.static == plan.codewords * cuda_scl.SMALL8_STATIC_BYTES
+    _plans_hold(cases, cuda)
     k = cuda_scl.SclKernels(bch_sc().spec, 1)
     assert k.block_threads("scl_mc_counters", cuda) == 32
     assert k.block_codewords("scl_mc_counters", cuda) == 2
@@ -1021,23 +1062,21 @@ def test_arikan8_kernels_on_huge_magnitudes(cuda, N, K, crc, B, L):
 
 
 def test_arikan8_shared_memory_mirror(cuda):
-    """The library's threads, shared memory and blocks an SM of the Arikan
-    capacity-8 instances == the Python mirror (`fast_threads`,
-    `fast_smem_bytes`, FAST_STATIC_BYTES, `fast_blocks_per_sm`) at N = 16
-    .. 4096 for L = 1..8, the card holding at least the blocks the layout
-    allows; ca_scl's K5 fits 8 blocks of 128 threads an SM and K1 10 of
-    64, and the card holds exactly those."""
+    """The Arikan capacity-8 instances launch as their plans say
+    (`_plans_hold`) at N = 16 .. 4096 for L = 1..8, with `Fast`
+    (FAST_STATIC_BYTES) of static shared memory; ca_scl's K5 fits 8 blocks
+    of 128 threads an SM and K1 10 of 64, and the card holds exactly
+    those."""
+    cases = []
     for N in (16, 64, 1024, 2048, 4096):
         spec = ca_scl().spec if N == 1024 else _spec(N, N // 2, None)
         for L in range(1, 9):
             k = cuda_scl.SclKernels(spec, L)
-            for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj", "scl_mc_counters"):
-                dyn, static = k.smem_bytes(name, cuda)
-                assert dyn == cuda_scl.fast_smem_bytes(spec, L, name), (N, L, name)
-                assert static == cuda_scl.FAST_STATIC_BYTES
-                assert k.block_threads(name, cuda) == cuda_scl.fast_threads(spec, L, name)
-                assert (k.blocks_per_sm(name, cuda)
-                        >= cuda_scl.fast_blocks_per_sm(spec, L, name)), (N, L, name)
+            cases += [(k, name) for name in ("scl_decode", "scl_decode_traj", "scl_mc_traj",
+                                             "scl_mc_counters")]
+            for _, name in cases[-4:]:
+                assert k.smem_bytes(name, cuda)[1] == cuda_scl.FAST_STATIC_BYTES
+    _plans_hold(cases, cuda)
     k = cuda_scl.SclKernels(ca_scl().spec, 8)
     assert k.block_threads("scl_mc_counters", cuda) == 128
     assert k.blocks_per_sm("scl_mc_counters", cuda) == 8
