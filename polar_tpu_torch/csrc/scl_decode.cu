@@ -155,11 +155,14 @@ struct SclArgs {
   unsigned offmask;          // CRC offset mask
   unsigned seed0, seed1;     // Philox key (kMonteCarlo)
   float sigma;               // channel noise deviation (kMonteCarlo)
-  int n_ops, N, m, P, Q, K, W, B;
+  int n_ops, N, m, P, Q, K, W, B;  // B: the whole batch
   int n_lam, n_dec, n_maps;  // LLR floats, decision bytes, path-map bytes
   int big;                   // 1: some kernel is l > 2 (the BIG instances)
   int view1;                 // the Arikan capacity-8 body reads stage 1
                              // through the channel row (no node op reads it)
+  int b0;                    // batch index of the launch's first codeword:
+                             // K5 (kCounters) runs a batch in chunks; 0 else
+                             // (last, so the other fields keep their offsets)
 };
 
 namespace {
@@ -742,22 +745,16 @@ __device__ int block_sum(int v, SM& sm, int lane, int warp) {
   }
 }
 
-// The Monte-Carlo prologue of codeword b = blockIdx.x (CW codewords a
-// block: CW * blockIdx.x + the thread's T-thread part, the last codeword
-// again in an idle part): data bits, CRC, encode, BPSK-AWGN, LLRs into
+// The Monte-Carlo prologue of codeword b (its batch index: Philox
+// counter and noise row): data bits, CRC, encode, BPSK-AWGN, LLRs into
 // chan[N]; the transmitted u into ut[N]. xb (N bytes) is scratch; st the
 // stage tables (read after the first barrier). Every thread of the
 // codeword (T threads).
-template <bool BIG, int T, int CW = 1, class SM>
-__device__ void mc_prologue(const SclArgs& a, const StageTab* st,
+template <bool BIG, int T, class SM>
+__device__ void mc_prologue(const SclArgs& a, unsigned b, const StageTab* st,
                             float* chan, unsigned char* ut, unsigned char* xb,
                             SM& sm, int tid, int lane, int warp) {
   const int N = a.N, K = a.K, nh = a.N >> 1;
-  unsigned b = blockIdx.x;
-  if constexpr (CW > 1) {
-    b = b * CW + threadIdx.x / T;
-    if ((int)b >= a.B) b = (unsigned)a.B - 1u;
-  }
   unsigned* words = reinterpret_cast<unsigned*>(chan);
   // word w = output w % 4 of counter (w / 4, b, 0, 0): words [0, N) give
   // the data bits (least significant bit), [N, 2N) the uniforms u1, u2
@@ -1028,8 +1025,8 @@ __host__ __device__ inline int codeword_state_bytes(const SclArgs& a, bool mc,
 // dynamic shared memory after the one copy of the stage tables) and its
 // own `Small<8>`. SC has no forks, so both halves run the same op program
 // and meet at the same barriers (__syncwarp); every group of lanes, shuffle
-// and ballot stays within a half. Codeword 2 * blockIdx.x + half; in the
-// last block of an odd batch the second half decodes the last codeword
+// and ballot stays within a half. Codeword b0 + 2 * blockIdx.x + half; in
+// the last block of an odd batch the second half decodes the last codeword
 // again and writes nothing. P is 1 at compile time there.
 template <int SRC, int OUT, bool BIG, int CAP, int T, int CW = 1>
 __device__ __forceinline__ void scl_body(const SclArgs& a) {
@@ -1054,10 +1051,12 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   const int tid = CW == 1 ? (int)threadIdx.x : (int)threadIdx.x % TC;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // CW = 2: the codeword; `live`: in the batch (it writes), else it
-  // decodes the last one again (CW = 1 reads blockIdx.x where it is used)
-  const unsigned bq = blockIdx.x * CW + half;
+  // the codeword (its batch index; only K5 launches in chunks); `live`: in
+  // the batch (it writes), else it decodes the last one again (`bx`, CW =
+  // 2 only)
+  const unsigned bq = (OUT == kCounters ? (unsigned)a.b0 : 0u) + blockIdx.x * CW + half;
   const bool live = CW == 1 || (int)bq < a.B;
+  const unsigned bx = live ? bq : (unsigned)a.B - 1u;
   // capacity 8: the stage tables in shared memory for the whole decode
   const int st_bytes = CAP == 8 ? stage_copy_bytes(m) : 0;
   const StageTab* const st =
@@ -1097,13 +1096,13 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
   }
   const float* x;
   if constexpr (SRC == kMonteCarlo) {
-    mc_prologue<BIG, TC, CW>(a, st, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
+    mc_prologue<BIG, TC>(a, bx, st, chan, ut, traj, sm, tid, lane, warp);   // traj: scratch
     clk_mark(kClkPrologue);
     x = chan;
   } else if constexpr (SRC == kPathBound) {
-    x = a.llr + (size_t)blockIdx.x * P * N;
+    x = a.llr + (size_t)bq * P * N;
   } else {
-    x = a.llr + (size_t)(CW == 1 ? blockIdx.x : live ? bq : a.B - 1) * N;
+    x = a.llr + (size_t)bx * N;
   }
 
   // stage s (1..m): block n_s, LLR buffer P*n_s, l_s decision children of
@@ -1117,7 +1116,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
 
   for (int i = tid; i < n_maps; i += TC) maps[i] = (unsigned char)(i % P);
   if (tid < P) {
-    if constexpr (SRC == kPathBound) sm.pm[tid] = a.pm_in[blockIdx.x * P + tid];
+    if constexpr (SRC == kPathBound) sm.pm[tid] = a.pm_in[bq * P + tid];
     else sm.pm[tid] = (tid == 0) ? 0.f : kBig;
   }
   if constexpr (CAP == 32) {
@@ -1487,7 +1486,7 @@ __device__ __forceinline__ void scl_body(const SclArgs& a) {
     if (prev_small) __syncthreads();
   }
 
-  const size_t b = CW == 1 ? blockIdx.x : bq;
+  const size_t b = bq;
   if constexpr (OUT == kTrajectory || OUT == kSubtree) {
     if (!live) return;                     // no barrier follows
     // the genealogy, [B, ...]-major: one contiguous run per codeword
@@ -1891,6 +1890,8 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // the codeword (its batch index; only K5 launches in chunks)
+  const unsigned bq = (OUT == kCounters ? (unsigned)a.b0 : 0u) + blockIdx.x;
   if (tid <= m) {
     int dw = 0;
     for (int s = 1; s < tid; ++s) dw += 2 * ((P * (N >> s) + 31) >> 5);
@@ -1905,7 +1906,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   if constexpr (SRC == kMonteCarlo) {
     // the LLR buffers are scratch until the first DOWN: u_true and x bytes
     unsigned char* ub = reinterpret_cast<unsigned char*>(lam);
-    mc_prologue<false, T>(a, a.st, chan, ub, ub + N, sm, tid, lane, warp);
+    mc_prologue<false, T>(a, bq, a.st, chan, ub, ub + N, sm, tid, lane, warp);
     __syncthreads();
     for (int base = warp * 32; base < R * 32; base += T) {
       const int t = base + lane;
@@ -1915,7 +1916,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
     clk_mark(kClkPrologue);
     x = chan;
   } else {
-    x = a.llr + (size_t)blockIdx.x * N;
+    x = a.llr + (size_t)bq * N;
   }
   for (int i = tid; i < P * R; i += T) trajw[i] = 0u;
   for (int i = tid; i < n_maps; i += T) maps[i] = ident_map();
@@ -2308,7 +2309,7 @@ __device__ __forceinline__ void fast_body(const SclArgs& a) {
   __syncthreads();
   clk_mark_by(clk0, prev_slot);
 
-  const size_t b = blockIdx.x;
+  const size_t b = bq;
   auto traj_at = [&](int t, int slot) {
     return (trajw[slot * R + (t >> 5)] >> (t & 31)) & 1u;
   };
@@ -2549,36 +2550,40 @@ int scl_set_smem(int i, int bytes) {
 
 // The current device's SM limits (ops/cuda_scl.py `SmLimits`): shared
 // memory an SM, what the runtime keeps of it a block, registers and blocks
-// an SM, and the most shared memory a block may use.
+// an SM, the most shared memory a block may use, and its SMs.
 int scl_device_limits(int* out) {
-  static const cudaDeviceAttr attrs[5] = {
+  static const cudaDeviceAttr attrs[6] = {
       cudaDevAttrMaxSharedMemoryPerMultiprocessor, cudaDevAttrReservedSharedMemoryPerBlock,
       cudaDevAttrMaxRegistersPerMultiprocessor, cudaDevAttrMaxBlocksPerMultiprocessor,
-      cudaDevAttrMaxSharedMemoryPerBlockOptin};
+      cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMultiProcessorCount};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  for (int k = 0; k < 5 && err == cudaSuccess; ++k)
+  for (int k = 0; k < 6 && err == cudaSuccess; ++k)
     err = cudaDeviceGetAttribute(out + k, attrs[k], dev);
   return (int)err;
 }
 
-// Launches instance i over a->B codewords, `codewords` a block of
-// `threads`, with its layout's dynamic shared memory. cudaErrorInvalidValue
-// where i does not run `kernel` at a's list capacity and kernels (l > 2 or
-// not), where `threads` and `codewords` are not the instance's, or where
-// *a is out of the kernels' range.
+// Launches instance i over the `count` codewords of the batch (a->B) from
+// a->b0 on, `codewords` a block of `threads`, with its layout's dynamic
+// shared memory. cudaErrorInvalidValue where i does not run `kernel` at
+// a's list capacity and kernels (l > 2 or not), where `threads` and
+// `codewords` are not the instance's, where *a is out of the kernels'
+// range, or where [b0, b0 + count) is not in the batch or, short of its
+// end, not whole blocks; b0 must be 0 but for K5 (kernel 3).
 int scl_launch(int i, int kernel, int threads, int codewords, const SclArgs* a,
-               void* stream) {
+               int count, void* stream) {
   if (i < 0 || i >= kInstanceCount) return (int)cudaErrorInvalidValue;
   const Instance& in = kInstances[i];
   const int maps = a->n_maps + (kernel == 4 ? a->P : 0);
   if (in.kernel != kernel || in.cap != (a->P > 8 ? 32 : 8) || (a->big && !in.big)
       || in.threads != threads || in.codewords != codewords || a->P < 1 || a->P > 32
       || a->W > 32 || a->B < 1 || a->N < 2 || a->m < 1 || a->m + 1 > kMaxStages
-      || (a->P > 8 && maps > kMapsPerThread32 * kThreads))
+      || (a->P > 8 && maps > kMapsPerThread32 * kThreads) || a->b0 < 0
+      || (a->b0 != 0 && kernel != 3) || count < 1 || count > a->B - a->b0
+      || (count < a->B - a->b0 && count % codewords != 0))
     return (int)cudaErrorInvalidValue;
   void (*const fn)(SclArgs) = in.fn;
-  fn<<<(a->B + codewords - 1) / codewords, threads, layout_smem(in, *a),
+  fn<<<(count + codewords - 1) / codewords, threads, layout_smem(in, *a),
        (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -34,7 +34,10 @@ ops/cuda_build.py), and loads it with ctypes.
 
 `SclDecoder.kernel(llrs)` is the decode wrapper: a CUDA tensor goes to the
 kernel (or the call raises), a CPU tensor to the plain PyTorch version
-(ops/scl.py). `LAUNCHES[name]` counts each kernel's launches.
+(ops/scl.py). `LAUNCHES[name]` counts each kernel's launches (calls of
+`SclKernels.launch`), `CHUNKS[name]` the device launches they made: K5
+at two codewords a block runs a long batch as a run of chunks of whole
+rounds (`launch_chunks`).
 
 `clock_build()` sends the launches inside it to the op-kind clock build
 of the same source (`-DSCL_CLOCK`: cycles by op kind, and by stage in
@@ -67,6 +70,7 @@ SOURCE = cuda_build.CSRC / "scl_decode.cu"
 KERNELS = {"scl_decode": 0, "scl_decode_traj": 1, "scl_mc_traj": 2,
            "scl_mc_counters": 3, "scl_subtree": 4}
 LAUNCHES = {name: 0 for name in KERNELS}
+CHUNKS = {name: 0 for name in KERNELS}
 
 _KIND = {"DOWN_FRESH": 0, "DOWN_DYN": 1, "UP": 2, "R0": 3, "REP": 4,
          "R1": 5, "SPC": 6, "LEAF": 7}
@@ -93,30 +97,45 @@ SMEM_UNIT = 128               # a block's shared memory is given in these units
 class SmLimits(NamedTuple):
     """An SM's limits, which the launch plan reads: its shared memory and
     what the runtime keeps of it a block, its registers and resident
-    blocks, and the most shared memory a block may use (bytes)."""
+    blocks, the most shared memory a block may use (bytes), and the
+    device's SMs."""
     shared: int
     reserved: int
     registers: int
     blocks: int
     block_optin: int
+    sms: int
 
 
-# an H100's; on the card `device_limits` reads the device's own
+# an H100 SXM's; on the card `device_limits` reads the device's own
 H100 = SmLimits(shared=228 * 1024, reserved=1024, registers=65536, blocks=32,
-                block_optin=232448)
+                block_optin=232448, sms=132)
+
+# Rounds a device launch of K5 (`scl_mc_counters`) takes at most where a
+# block decodes two codewords; a round is the codewords every SM holds at
+# once. A long launch lets its blocks drift apart; chunks of whole rounds,
+# back to back, start each round's blocks together again. bch_sc's
+# `_big_t32_cw2` at B = 32768 (H100 80GB HBM3, 700 W; kernel_times
+# --chunks): one launch 7.192 ms, chunks of 1 round (4,224) 6.012, of 2
+# 6.326, of 4 6.665. The one-codeword Arikan `_t128` (ca_scl, B = 8192)
+# lost 0.8-1.0% in chunks (4.055 ms against 4.086-4.095), so it keeps one
+# launch.
+K5_CHUNK_ROUNDS = 1
 
 
 class LaunchPlan(NamedTuple):
     """How a decode kernel launches for one (spec, list size, kernel): the
     instance (its `__global__` name in the source), threads and codewords a
-    block, dynamic (`smem`) and static shared memory a block, and the
-    blocks an SM holds by the layout."""
+    block, dynamic (`smem`) and static shared memory a block, the blocks
+    an SM holds by the layout, and the codewords a device launch takes at
+    most (`chunk`; 0: the whole batch in one)."""
     instance: str
     threads: int
     codewords: int
     smem: int
     static: int
     blocks_per_sm: int
+    chunk: int
 
 
 @functools.lru_cache(maxsize=1024)
@@ -128,21 +147,27 @@ def launch_plan(spec: CodeSpec, list_size: int, kernel: str,
     else the general body (`_big` for l > 2 kernels; `_c32` at capacity
     32, `_t32_cw2` at two codewords a warp by `general_codewords`, else
     `_t32` / `_t64` by `general_threads`). Raises ValueError where the
-    block's shared memory exceeds what a block may use."""
+    block's shared memory exceeds what a block may use. K5 at two
+    codewords a block launches in chunks of K5_CHUNK_ROUNDS rounds
+    (`launch_chunks`); every other plan a batch at once."""
     P = int(list_size)
     if arikan8(spec, P, kernel):
-        T = fast_threads(spec, P, kernel, limits)
-        plan = LaunchPlan(f"{kernel}_t{T}", T, 1, fast_smem_bytes(spec, P, kernel),
-                          FAST_STATIC_BYTES, fast_blocks_per_sm(spec, P, kernel, limits))
+        T, cw = fast_threads(spec, P, kernel, limits), 1
+        instance, smem, static = (f"{kernel}_t{T}", fast_smem_bytes(spec, P, kernel),
+                                  FAST_STATIC_BYTES)
+        blocks = fast_blocks_per_sm(spec, P, kernel, limits)
     else:
         big = kernel != "scl_subtree" and any(f > 2 for f in spec.factors)
         cw = general_codewords(spec, P, kernel, limits)
         T = cw * general_threads(spec, P, kernel, limits)
         width = "_c32" if P > 8 else "_t32_cw2" if cw == 2 else f"_t{T}"
-        plan = LaunchPlan(kernel + ("_big" if big else "") + width, T, cw,
-                          general_smem_bytes(spec, P, kernel, limits),
-                          general_static_bytes(spec, P, kernel, limits),
-                          general_blocks_per_sm(spec, P, kernel, limits))
+        instance = kernel + ("_big" if big else "") + width
+        smem = general_smem_bytes(spec, P, kernel, limits)
+        static = general_static_bytes(spec, P, kernel, limits)
+        blocks = general_blocks_per_sm(spec, P, kernel, limits)
+    chunk = (K5_CHUNK_ROUNDS * blocks * limits.sms * cw
+             if kernel == "scl_mc_counters" and cw == 2 else 0)
+    plan = LaunchPlan(instance, T, cw, smem, static, blocks, chunk)
     if plan.smem + plan.static > limits.block_optin:
         raise ValueError(
             f"decode state of N={spec.N}, L={P}: {plan.smem} B exceeds the "
@@ -151,6 +176,16 @@ def launch_plan(spec: CodeSpec, list_size: int, kernel: str,
             "big_stage_backend='pallas'), one subtree-kernel launch a depth-1 "
             "child")
     return plan
+
+
+def launch_chunks(batch: int, chunk: int) -> list[tuple[int, int]]:
+    """The device launches of a batch of `batch` codewords at a plan's
+    `chunk`: (first codeword b0, codewords) in order, `chunk` each but the
+    last; one launch where `chunk` is 0 or holds the batch."""
+    batch = int(batch)
+    if chunk <= 0 or batch <= chunk:
+        return [(0, batch)]
+    return [(b0, min(chunk, batch - b0)) for b0 in range(0, batch, chunk)]
 
 
 def arikan8(spec: CodeSpec, list_size: int, kernel: str = "scl_decode") -> bool:
@@ -401,7 +436,7 @@ class SclArgs(ctypes.Structure):
         + [("sigma", ctypes.c_float)]
         + [(name, ctypes.c_int) for name in (
             "n_ops", "N", "m", "P", "Q", "K", "W", "B", "n_lam", "n_dec",
-            "n_maps", "big", "view1")])
+            "n_maps", "big", "view1", "b0")])
 
 
 _POINTERS = {name for name, kind in SclArgs._fields_ if kind is ctypes.c_void_p}
@@ -418,7 +453,7 @@ def load_library(clock: bool | None = None) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build("scl_decode.cu", clock)))
     ci, args = ctypes.c_int, ctypes.POINTER(SclArgs)
     for name, argtypes, restype in (
-            ("scl_launch", [ci, ci, ci, ci, args, ctypes.c_void_p], ci),
+            ("scl_launch", [ci, ci, ci, ci, args, ci, ctypes.c_void_p], ci),
             ("scl_instance_count", [], ci),
             ("scl_instance_name", [ci], ctypes.c_char_p),
             ("scl_smem_bytes", [ci, args], ctypes.c_size_t),
@@ -690,21 +725,27 @@ class SclKernels:
         return self._plans[key]
 
     def launch(self, name: str, batch: int, device: torch.device,
-               **fields) -> None:
+               chunk: int | None = None, **fields) -> None:
         """Launch kernel `name` over `batch` codewords on the device's
-        current stream, as its launch plan says. `fields` are the SclArgs
-        entries of this kernel: tensors for the pointers, numbers for the
-        scalars."""
+        current stream, as its launch plan says: one device launch a chunk
+        of `launch_chunks`, back to back (`chunk` in place of the plan's,
+        for measurement). `fields` are the SclArgs entries of this kernel:
+        tensors for the pointers, numbers for the scalars."""
         plan, index = self._ready(name, device)
         args = self._args(batch, device, **fields)
+        parts = launch_chunks(batch, plan.chunk if chunk is None else chunk)
+        lib = load_library()
         # the launch acts on the current device: make it the tensors' device
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = load_library().scl_launch(index, KERNELS[name], plan.threads,
-                                            plan.codewords, ctypes.byref(args), stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            for b0, count in parts:
+                args.b0 = b0
+                err = lib.scl_launch(index, KERNELS[name], plan.threads, plan.codewords,
+                                     ctypes.byref(args), count, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
+        CHUNKS[name] += len(parts)
 
 
 def check_llrs(llrs: torch.Tensor, N: int) -> None:

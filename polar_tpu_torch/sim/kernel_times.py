@@ -54,6 +54,15 @@ SM; K1: 64 threads, 10), and prints the slots of the blocks on a few SMs
 and how the leader-warp rule (`cuda_scl.leader_warp`) spreads the leaders
 over the four sub-partitions, beside warp 0.
 
+`--chunks` times K5 (`scl_mc_counters`) over one batch as one device
+launch and as back-to-back launches of R = 1, 2 and 4 rounds (a round: the
+codewords every SM holds at once by the launch plan), on one stream with
+no sync between them: bch_sc (L=1, `_big_t32_cw2`) at its cell's
+B = 32768 and ca_scl (L=8, `_t128`) at B = 8192, in the order one launch,
+R = 1, 2, 4, 4, 2, 1, one launch, `--reps` times; every chunking's counters
+must equal the one launch's (or it raises). `plan_chunk` is the chunk the
+launch plan takes (ops/cuda_scl.py K5_CHUNK_ROUNDS).
+
 `--k6-lanes` times K6 alone at each trellis input of the 16x16 kernel at
 every lane count (R = S / lanes states a lane), beside the count the rule
 (`cuda_stage.lanes_for`) picks, at mixed_scl32's outer shapes and bch_sc's
@@ -354,6 +363,53 @@ def k6_lanes(dev, card: str, reps: int) -> None:
                               "min_ms_by_lanes": ms, "card": card}), flush=True)
 
 
+CHUNK_ROUNDS = (1, 2, 4)
+CHUNK_RUNS = (("bch_sc", 1, 32768), ("ca_scl", 8, 8192))
+
+
+def chunks(dev, card: str, reps: int) -> None:
+    """K5 over one batch as one device launch against back-to-back chunks
+    of CHUNK_ROUNDS rounds, at bch_sc and ca_scl (CHUNK_RUNS); a JSON line
+    each with the mean ms a call of 20 calls, `reps` times in the order A
+    B B A."""
+    from polar_tpu_torch.ops import cuda_scl
+
+    for preset, L, B in CHUNK_RUNS:
+        spec = get_preset(preset).spec
+        step = build_mc_step(spec, L, device=dev, counters=True)
+        kern = step.decoder.kernels
+        plan = kern.plan("scl_mc_counters", dev)
+        sms = cuda_scl.device_limits(cuda_scl._device_index(dev)).sms
+        rnd = plan.blocks_per_sm * sms * plan.codewords
+        sigma = float(np.float32(ebn0_to_sigma(2.0, spec.rate)))
+        cnt = torch.empty((2, B), dtype=torch.int32, device=dev)
+        sizes = {"one": B, **{f"R={r}": r * rnd for r in CHUNK_ROUNDS}}
+
+        def run(chunk):
+            kern.launch("scl_mc_counters", B, dev, chunk=chunk, noise=None, seed0=11,
+                        seed1=12, sigma=sigma, counters=cnt)
+        run(B)
+        ref = cnt.clone()
+        for chunk in sizes.values():
+            cnt.zero_()
+            run(chunk)
+            if not torch.equal(cnt, ref):
+                raise RuntimeError(f"{preset}: K5 in chunks of {chunk} differs from one launch")
+        order = list(sizes) + list(sizes)[::-1]
+        ms = {k: [] for k in sizes}
+        for _ in range(reps):
+            for k in order:
+                ms[k].append(_ms(lambda c=sizes[k]: run(c)))
+        one = min(ms["one"])
+        print(json.dumps({
+            "preset": preset, "kernel": "scl_mc_counters", "instance": plan.instance,
+            "L": L, "batch": B, "round": rnd, "plan_chunk": plan.chunk,
+            "launches": {k: len(cuda_scl.launch_chunks(B, c)) for k, c in sizes.items()},
+            "ms": ms, "min_ms": {k: min(v) for k, v in ms.items()},
+            "vs_one": {k: one / min(v) for k, v in ms.items()},
+            "card": card}), flush=True)
+
+
 def split(B: int, dev, card: str, only=SPLIT_RUNS) -> None:
     """The op-kind clock of K5 and K1 at ca_scl (B codewords), of K5 at
     bch_sc (L=1) and K1 at bch_sc L=8 (B codewords), of K1 at L=32 on the
@@ -586,6 +642,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--slots", action="store_true",
                     help="the warp slots of the Arikan body's blocks and the "
                          "leader rule's sub-partitions instead")
+    ap.add_argument("--chunks", action="store_true",
+                    help="K5 as one launch against chunks of 1, 2, 4 rounds instead")
     ap.add_argument("--k6-lanes", action="store_true",
                     help="K6 at every lane count of each trellis input instead")
     ap.add_argument("--sass-against", metavar="DIR", default=None,
@@ -617,6 +675,9 @@ def main(argv=None) -> None:
         return
     if args.k6_lanes:
         k6_lanes(dev, card, args.reps)
+        return
+    if args.chunks:
+        chunks(dev, card, args.reps)
         return
     if args.split:
         split(B, dev, card, only)

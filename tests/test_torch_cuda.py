@@ -419,6 +419,76 @@ def test_bch_sc_two_codewords_a_warp_match_plain(cuda, B):
     assert torch.equal(step.counts(seed, sigma, B), step.plain_counts(seed, sigma, B))
 
 
+def _k5_chunks_match(cuda, spec, L, batches, seed_base):
+    """K5 at each batch, as the plan's chunks, as one device launch
+    (`scl_launch` once over the whole grid) and in chunks of one round
+    (the codewords every SM holds at once by the plan), on the in-kernel
+    Philox draw and on given noise: the counters of all three equal the
+    plain version's bit for bit, in both rows, and `CHUNKS` grows by the
+    partition's launches. Returns (plan, round)."""
+    from polar_tpu_torch.ops.mc import build_mc_step
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    step = build_mc_step(spec, L, device=cuda, counters=True)
+    kern = step.decoder.kernels
+    plan = kern.plan("scl_mc_counters", cuda)
+    sms = cuda_scl.device_limits(cuda_scl._device_index(cuda)).sms
+    rnd = plan.blocks_per_sm * sms * plan.codewords
+    sigma = float(np.float32(ebn0_to_sigma(1.0, spec.rate)))
+    rng = np.random.default_rng(seed_base)
+    for B in batches:
+        seed = (int(rng.integers(2**32)), int(rng.integers(2**32)))
+        g = torch.as_tensor(rng.standard_normal((B, spec.N)), dtype=torch.float32,
+                            device=cuda)
+        for noise in (None, g):
+            ref = step.plain_counts(seed, sigma, B, noise)
+            for chunk in (None, B, rnd):
+                parts = cuda_scl.launch_chunks(B, plan.chunk if chunk is None else chunk)
+                cnt = torch.full((2, B), -1, dtype=torch.int32, device=cuda)
+                before = cuda_scl.CHUNKS["scl_mc_counters"]
+                kern.launch("scl_mc_counters", B, cuda, chunk=chunk, noise=noise,
+                            seed0=seed[0], seed1=seed[1], sigma=sigma, counters=cnt)
+                assert cuda_scl.CHUNKS["scl_mc_counters"] - before == len(parts)
+                assert torch.equal(cnt, ref), (B, chunk, noise is None)
+    return plan, rnd
+
+
+def test_bch_sc_k5_in_chunks_equals_one_launch(cuda):
+    """bch_sc's K5 (`_big_t32_cw2`, two codewords a block) in chunks equals
+    one launch and the plain version at a batch of 1, a round - 1 and + 1
+    (odd: the last block's second half decodes the last codeword again),
+    two chunks + 1 and the cell's 32,768 (8 chunks of a round on an
+    H100): a codeword draws the same Philox words and noise row whatever
+    chunk it falls in."""
+    from polar_tpu_torch.models.presets import bch_sc
+    spec = bch_sc().spec
+    plan = cuda_scl.SclKernels(spec, 1).plan("scl_mc_counters", cuda)
+    sms = cuda_scl.device_limits(cuda_scl._device_index(cuda)).sms
+    rnd = plan.blocks_per_sm * sms * plan.codewords
+    assert (plan.instance, plan.codewords) == ("scl_mc_counters_big_t32_cw2", 2)
+    assert plan.chunk == cuda_scl.K5_CHUNK_ROUNDS * rnd
+    _k5_chunks_match(cuda, spec, 1, (1, rnd - 1, rnd + 1, 2 * plan.chunk + 1, 32768), 24)
+    assert len(cuda_scl.launch_chunks(32768, plan.chunk)) == -(-32768 // plan.chunk)
+
+
+def test_ca_scl_k5_in_chunks_equals_one_launch(cuda):
+    """ca_scl's K5 (the Arikan body's `_t128`, one codeword a block) keeps
+    one launch in its plan; in chunks of a round (`b0` in the Arikan body)
+    it equals one launch and the plain version at the cell's 8,192 and at
+    a round + 1. The library refuses a chunk past the first of any other
+    kernel, which reads no `b0`."""
+    spec = ca_scl().spec
+    plan = cuda_scl.SclKernels(spec, 8).plan("scl_mc_counters", cuda)
+    assert (plan.instance, plan.chunk) == ("scl_mc_counters_t128", 0)
+    sms = cuda_scl.device_limits(cuda_scl._device_index(cuda)).sms
+    _k5_chunks_match(cuda, spec, 8, (8192, plan.blocks_per_sm * sms + 1), 25)
+    dec = cuda_scl.SclDecoder(spec, 8, cuda)
+    x = torch.zeros((64, spec.N), device=cuda)
+    out = {"u": torch.empty((64, spec.N), dtype=torch.int8, device=cuda),
+           "pm": torch.empty(64, device=cuda), "ok": torch.empty(64, dtype=torch.bool, device=cuda)}
+    with pytest.raises(RuntimeError, match="scl_decode launch failed"):
+        dec.kernels.launch("scl_decode", 64, cuda, chunk=32, llr=x, **out)
+
+
 def test_bch_sc_two_codewords_a_warp_never_mix(cuda):
     """A codeword with a +-inf LLR (its l > 2 marginals NaN) shares a warp
     with a finite one, in either half: the finite codewords still equal the

@@ -70,11 +70,11 @@ def test_plans_of_the_cells():
     route of mixed_scl32 at L=32 is refused at the plan."""
     ca, bch = presets.ca_scl().spec, presets.bch_sc().spec
     assert cuda_scl.launch_plan(ca, 8, "scl_mc_counters") == cuda_scl.LaunchPlan(
-        "scl_mc_counters_t128", 128, 1, 25176, 944, 8)
+        "scl_mc_counters_t128", 128, 1, 25176, 944, 8, 0)
     assert cuda_scl.launch_plan(ca, 8, "scl_decode") == cuda_scl.LaunchPlan(
-        "scl_decode_t64", 64, 1, 20952, 944, 10)
+        "scl_decode_t64", 64, 1, 20952, 944, 10, 0)
     assert cuda_scl.launch_plan(bch, 1, "scl_mc_counters") == cuda_scl.LaunchPlan(
-        "scl_mc_counters_big_t32_cw2", 32, 2, 1344 + 2 * 2128, 2 * 1296, 16)
+        "scl_mc_counters_big_t32_cw2", 32, 2, 1344 + 2 * 2128, 2 * 1296, 16, 16 * 132 * 2)
     children = _mixed_children()
     assert len(children) == 13
     for child in children:
@@ -134,9 +134,9 @@ def test_every_plan_names_an_instance_of_the_table():
     assert {r for r in refused if not r[1]} == {(4096, False, "scl_subtree")}
 
 
-# an SM of 100 KB of shared memory and 16 blocks (an sm_86 part)
+# an SM of 100 KB of shared memory and 16 blocks (an sm_86 part of 84 SMs)
 SMALL_SM = cuda_scl.SmLimits(shared=100 * 1024, reserved=1024, registers=65536, blocks=16,
-                             block_optin=101376)
+                             block_optin=101376, sms=84)
 
 
 def test_other_limits_lead_to_the_other_widths():
@@ -194,18 +194,15 @@ class _FakeLibrary:
         self.calls.append(("scl_set_smem", index, smem))
         return 0
 
-    def scl_launch(self, index, kernel, threads, codewords, args, stream):
+    def scl_launch(self, index, kernel, threads, codewords, args, count, stream):
         self.calls.append(("scl_launch", index, kernel, threads, codewords,
-                           args._obj.B))
+                           args._obj.B, args._obj.b0, count))
         return 0
 
 
-def test_launch_calls_the_library_once(monkeypatch):
-    """`SclKernels.launch` takes its plan at the first launch on a device
-    and then calls the library once a launch (`scl_launch`, with the
-    plan's instance, threads and codewords); the instance's shared memory
-    is set once a device, also for the kernels of a later pass; the
-    wrappers' answers are the plan's."""
+def _fake_card(monkeypatch) -> tuple[_FakeLibrary, dict]:
+    """The library calls of launches recorded, on an H100's limits, with
+    no card: (library, {instance: index})."""
     lib = _FakeLibrary()
     index = {name: i for i, name in enumerate(instance_table())}
     monkeypatch.setattr(cuda_scl, "load_library", lambda clock=None: lib)
@@ -218,6 +215,16 @@ def test_launch_calls_the_library_once(monkeypatch):
     tables = cuda_scl.SclKernels.device_tables
     monkeypatch.setattr(cuda_scl.SclKernels, "device_tables",
                         lambda self, device: tables(self, torch.device("cpu")))
+    return lib, index
+
+
+def test_launch_calls_the_library_once(monkeypatch):
+    """`SclKernels.launch` takes its plan at the first launch on a device
+    and then calls the library once a launch of at most the plan's chunk
+    (`scl_launch`, with the plan's instance, threads and codewords); the
+    instance's shared memory is set once a device, also for the kernels of
+    a later pass; the wrappers' answers are the plan's."""
+    lib, index = _fake_card(monkeypatch)
     spec, dev = presets.bch_sc().spec, torch.device("cuda:0")
     plan = cuda_scl.launch_plan(spec, 1, "scl_mc_counters")
     for kernels in (cuda_scl.SclKernels(spec, 1), cuda_scl.SclKernels(spec, 1)):
@@ -229,5 +236,107 @@ def test_launch_calls_the_library_once(monkeypatch):
         assert kernels.smem_bytes("scl_mc_counters", dev) == (plan.smem, plan.static)
     i = index["scl_mc_counters_big_t32_cw2"]
     launch = ("scl_launch", i, cuda_scl.KERNELS["scl_mc_counters"], 32, 2)
-    assert lib.calls == [("scl_set_smem", i, plan.smem), launch + (8192,), launch + (77,),
-                         launch + (8192,), launch + (77,)]
+    pass_calls = [launch + (8192, 0, 4224), launch + (8192, 4224, 3968), launch + (77, 0, 77)]
+    assert lib.calls == [("scl_set_smem", i, plan.smem)] + pass_calls + pass_calls
+
+
+@pytest.mark.parametrize("batch,chunk", [(1, 8448), (8447, 8448), (8448, 8448), (8449, 8448),
+                                         (2 * 8448 + 1, 8448), (32768, 8448), (8192, 2112),
+                                         (2113, 2112), (32768, 4224), (5, 0), (32768, 0)])
+def test_launch_chunks_cover_the_batch_in_order(batch, chunk):
+    """`launch_chunks` covers [0, batch) in order and without overlap, in
+    chunks of `chunk` codewords but the last, which holds the rest; a batch
+    of at most one chunk, or a chunk of 0, is one launch."""
+    parts = cuda_scl.launch_chunks(batch, chunk)
+    assert [b0 for b0, _ in parts] == list(np.cumsum([0] + [n for _, n in parts[:-1]]))
+    assert sum(n for _, n in parts) == batch
+    if chunk == 0 or batch <= chunk:
+        assert parts == [(0, batch)]
+    else:
+        assert len(parts) == -(-batch // chunk)
+        assert all(n == chunk for _, n in parts[:-1]) and 0 < parts[-1][1] <= chunk
+
+
+def test_k5_chunk_is_whole_rounds_of_its_plan():
+    """K5's plan at two codewords a block launches K5_CHUNK_ROUNDS rounds
+    at most, a round being the codewords every SM holds at once by the
+    plan (blocks an SM x SMs x codewords a block): bch_sc's `_big_t32_cw2`
+    4,224 on an H100, so the cell's 32,768 launch as 8 chunks; K5 at one
+    codeword a block (ca_scl's `_t128`) and the other kernels launch a
+    batch at once."""
+    bch, ca = presets.bch_sc().spec, presets.ca_scl().spec
+    for spec, L, limits in ((bch, 1, cuda_scl.H100), (ca, 8, cuda_scl.H100),
+                            (bch, 1, SMALL_SM), (bch, 8, cuda_scl.H100)):
+        for kernel in KERNELS:
+            try:
+                plan = cuda_scl.launch_plan(spec, L, kernel, limits)
+            except ValueError:
+                continue
+            two = kernel == "scl_mc_counters" and plan.codewords == 2
+            rounds = cuda_scl.K5_CHUNK_ROUNDS if two else 0
+            assert plan.chunk == rounds * plan.blocks_per_sm * limits.sms * plan.codewords
+    assert cuda_scl.K5_CHUNK_ROUNDS == 1
+    assert cuda_scl.launch_plan(bch, 1, "scl_mc_counters").chunk == 4224
+    assert cuda_scl.launch_plan(bch, 1, "scl_mc_counters", SMALL_SM).chunk == 11 * 84 * 2
+    assert cuda_scl.launch_plan(ca, 8, "scl_mc_counters").chunk == 0
+    assert len(cuda_scl.launch_chunks(32768, 4224)) == 8
+
+
+def test_k5_launches_a_long_batch_in_chunks(monkeypatch):
+    """A K5 launch of bch_sc's 32,768 codewords calls the library once a
+    chunk of a round (4,224), back to back, each with its first codeword
+    in `b0` and the whole batch in `B`; `LAUNCHES` counts the call,
+    `CHUNKS` the device launches. A `chunk` given to `launch` takes the
+    plan's place; K1 at the same batch is one launch."""
+    lib, index = _fake_card(monkeypatch)
+    spec, dev = presets.bch_sc().spec, torch.device("cuda:0")
+    kernels = cuda_scl.SclKernels(spec, 1)
+    before = {d: dict(getattr(cuda_scl, d)) for d in ("LAUNCHES", "CHUNKS")}
+    B = 32768
+
+    def k5(chunk=None):
+        kernels.launch("scl_mc_counters", B, dev, chunk=chunk, noise=None, seed0=1,
+                       seed1=2, sigma=0.5, counters=torch.empty((2, B), dtype=torch.int32))
+    k5()
+    launch = ("scl_launch", index["scl_mc_counters_big_t32_cw2"],
+              cuda_scl.KERNELS["scl_mc_counters"], 32, 2, B)
+    assert lib.calls[1:] == [launch + (b0, 4224) for b0 in range(0, 7 * 4224, 4224)] + [
+        launch + (7 * 4224, 3200)]
+    assert cuda_scl.LAUNCHES["scl_mc_counters"] == before["LAUNCHES"]["scl_mc_counters"] + 1
+    assert cuda_scl.CHUNKS["scl_mc_counters"] == before["CHUNKS"]["scl_mc_counters"] + 8
+    del lib.calls[:]
+    k5(chunk=B)
+    assert lib.calls == [launch + (0, B)]
+    del lib.calls[:]
+    k5(chunk=2 * 4224)
+    assert [c[-2:] for c in lib.calls] == [(0, 8448), (8448, 8448), (16896, 8448), (25344, 7424)]
+    assert cuda_scl.LAUNCHES["scl_mc_counters"] == before["LAUNCHES"]["scl_mc_counters"] + 3
+    assert cuda_scl.CHUNKS["scl_mc_counters"] == before["CHUNKS"]["scl_mc_counters"] + 8 + 1 + 4
+    del lib.calls[:]
+    dec = cuda_scl.SclKernels(spec, 8)
+    llr = torch.empty((B, spec.N))
+    dec.launch("scl_decode", B, dev, llr=llr, u=llr, pm=llr, ok=llr)
+    assert [c[-2:] for c in lib.calls if c[0] == "scl_launch"] == [(0, B)]
+    assert cuda_scl.CHUNKS["scl_decode"] == before["CHUNKS"]["scl_decode"] + 1
+
+
+def _struct_fields(src: str, name: str) -> list:
+    """The member names of `struct name { ... };` in C++ source, in order."""
+    body = re.search(r"^struct " + name + r" \{(.*?)^\};", src, re.M | re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        parts = [p.strip() for p in decl.split(",") if p.strip()]
+        if parts:
+            names += [parts[0].split()[-1].lstrip("*")] + [p.lstrip("*") for p in parts[1:]]
+    return names
+
+
+def test_sclargs_mirror_holds_the_source_order():
+    """ops/cuda_scl.py `SclArgs` names the source's `SclArgs` members in the
+    source's order, `b0` (a chunk's first codeword) last, so the library
+    reads each field where the host writes it."""
+    src = (ROOT / "polar_tpu_torch" / "csrc" / "scl_decode.cu").read_text()
+    names = _struct_fields(src, "SclArgs")
+    assert names == [f for f, _ in cuda_scl.SclArgs._fields_]
+    assert names[-1] == "b0" and names.count("b0") == 1
