@@ -1,4 +1,4 @@
-"""Named code/benchmark presets — the five BASELINE configs.
+"""Named code/benchmark presets — the five BASELINE configs and one more.
 
 Mirrors BASELINE.json:6-12 / SURVEY.md §5 "Config / flag system": the
 reference hardcodes its configs in main(); here they are named presets
@@ -12,6 +12,10 @@ with frozen sets loaded from committed artifacts
 4. mixed_scl32    — mixed-kernel N=4096 = 16*16*2^4, SCL L=32 + CRC-16 [B:10]
 5. sweep          — multi-host Monte-Carlo FER sweep: 8-point Eb/N0 grid,
                     10^7 codewords, batch-sharded [B:11] (see sim.harness)
+6. mixed_n1024_scl32 — config 4's kernels, CRC and list size at config 2's
+                    length and rate: N=1024 = 16*16*2*2, K=512 + CRC-16,
+                    SCL L=32; small enough for one thread block, so the
+                    fused step (K5) decodes it (the port's own preset)
 """
 from __future__ import annotations
 
@@ -92,6 +96,15 @@ def mixed_scl32() -> Preset:
     return Preset("mixed_scl32", spec, 32, (2.0,), 1 << 16, 1 << 8)
 
 
+def mixed_n1024_scl32() -> Preset:
+    factors = (16, 16, 2, 2)
+    mask = _load_mask("mixed_n1024_k528", factors, 528)
+    spec = CodeSpec(N=1024, K=512, factors=factors, frozen_mask=mask,
+                    crc=CRC16)
+    return Preset("mixed_n1024_scl32", spec, 32, (1.0, 1.5, 2.0, 2.5),
+                  1 << 16, 1 << 13)
+
+
 def sweep() -> Preset:
     p = ca_scl()
     return dataclasses.replace(p, name="sweep", ebn0_grid=_GRID8,
@@ -99,7 +112,7 @@ def sweep() -> Preset:
 
 
 PRESETS = {f.__name__: f for f in (arikan_sc, ca_scl, bch_sc, mixed_scl32,
-                                   sweep)}
+                                   sweep, mixed_n1024_scl32)}
 
 
 def get_preset(name: str) -> Preset:

@@ -37,7 +37,8 @@ kernel (or the call raises), a CPU tensor to the plain PyTorch version
 (ops/scl.py). `LAUNCHES[name]` counts each kernel's launches (calls of
 `SclKernels.launch`), `CHUNKS[name]` the device launches they made: K5
 at two codewords a block runs a long batch as a run of chunks of whole
-rounds (`launch_chunks`).
+rounds (`launch_chunks`). `INSTANCES[instance]` counts the device
+launches by the instance the plan named.
 
 `clock_build()` sends the launches inside it to the op-kind clock build
 of the same source (`-DSCL_CLOCK`: cycles by op kind, and by stage in
@@ -71,6 +72,7 @@ KERNELS = {"scl_decode": 0, "scl_decode_traj": 1, "scl_mc_traj": 2,
            "scl_mc_counters": 3, "scl_subtree": 4}
 LAUNCHES = {name: 0 for name in KERNELS}
 CHUNKS = {name: 0 for name in KERNELS}
+INSTANCES: dict[str, int] = {}
 
 _KIND = {"DOWN_FRESH": 0, "DOWN_DYN": 1, "UP": 2, "R0": 3, "REP": 4,
          "R1": 5, "SPC": 6, "LEAF": 7}
@@ -746,6 +748,7 @@ class SclKernels:
                     raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
         CHUNKS[name] += len(parts)
+        INSTANCES[plan.instance] = INSTANCES.get(plan.instance, 0) + len(parts)
 
 
 def check_llrs(llrs: torch.Tensor, N: int) -> None:

@@ -31,6 +31,7 @@ from polar_tpu_torch.ops.cuda_scl import (SclDecoder, trajectory_layout,
 from polar_tpu_torch.ops.encode import assemble_u, encode_u
 from polar_tpu_torch.ops.philox import MASK32, random_words
 from polar_tpu_torch.utils.device import resolve_device
+from polar_tpu_torch.utils.spans import span
 
 TWO_PI = float(np.float32(2.0 * np.pi))     # float32(2 pi), exact as a double
 TWO_M24 = 2.0 ** -24
@@ -187,11 +188,13 @@ class McStep:
                        self.device, noise)
 
     def _launch(self, name: str, seed, sigma, batch: int, noise, **out):
-        noise = self._check_noise(noise, batch)
-        s0, s1 = _check_seed(seed)
-        self.decoder.kernels.launch(name, batch, self.device, noise=noise,
-                                    seed0=s0, seed1=s1,
-                                    sigma=float(np.float32(sigma)), **out)
+        # the host side of one call's launch, whatever its chunks
+        with span("mc_step.launch"):
+            noise = self._check_noise(noise, batch)
+            s0, s1 = _check_seed(seed)
+            self.decoder.kernels.launch(name, batch, self.device, noise=noise,
+                                        seed0=s0, seed1=s1,
+                                        sigma=float(np.float32(sigma)), **out)
 
 
 def build_mc_step(spec: CodeSpec, list_size: int, device="cuda",

@@ -16,6 +16,12 @@ byte the JAX package's (tests/test_torch_primitives.py), and the port's
 Philox draws give other Monte-Carlo masks (leaves near the reliability
 cut swap; chip_smoke.py holds them within 4 sd of it). Writing over them
 would break that copy.
+
+One committed mask is the port's own: `mixed_n1024_k528` (the
+`mixed_n1024_scl32` preset), which the JAX package does not have. It was
+built by this script on the card (`construct_mc`, 2^15 frames, seed 0)
+and copied into polar_tpu_torch/models/sequences/ and, byte for byte,
+portbench/data/.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ SPECS = {
     "arikan_n1024_k528": ((2,) * 10, 528, 2.0, "ga"),       # 512 + CRC16
     "bch_n256_k128": ((16, 16), 128, 2.0, "mc"),
     "mixed_n4096_k2064": ((16, 16, 2, 2, 2, 2), 2064, 2.0, "mc"),  # 2048+CRC16
+    "mixed_n1024_k528": ((16, 16, 2, 2), 528, 2.0, "mc"),   # 512 + CRC16
 }
 
 

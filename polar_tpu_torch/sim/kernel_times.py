@@ -19,7 +19,9 @@ default): K3 as the 13 subtree-kernel launches of one decode (inputs
 captured from the K3 route), K6 as its 15 outer stage-kernel launches, the
 whole decode through the K3 route, and
 K6 alone at each input i < 15 of the 16x16 kernel at the outer shape
-(P=32, n=256; and input 0 at one path, P=1); the `bch_sc` rows end with K6
+(P=32, n=256; and input 0 at one path, P=1); `mixed_n1024` (the
+mixed_n1024_scl32 preset, N=1024 = 16*16*2*2, L=32): K5 and K1 at their
+capacity-32 l > 2 instances (`_big_c32`); the `bch_sc` rows end with K6
 alone at each trellis input at bch_sc's hybrid shapes ((P, n) = (1, 16)
 and (1, 1)). Each time is the mean of 20 launches
 (2 for the mixed_scl32 rows) after 2 warm-up launches, repeated `--reps`
@@ -99,7 +101,8 @@ from polar_tpu_torch.ops.mc import build_mc_step
 from polar_tpu_torch.sim.channel import channel_llrs, ebn0_to_sigma
 from polar_tpu_torch.sim.golden import load_golden
 
-ROWS = ("ca_scl", "arikan_sc", "bch_sc", "golden_mixed", "L32", "mixed_scl32")
+ROWS = ("ca_scl", "arikan_sc", "bch_sc", "golden_mixed", "L32", "mixed_scl32",
+        "mixed_n1024")
 GOLDEN_MIXED = pathlib.Path(__file__).resolve().parents[2] / "results" / "golden_mixed_scl_b128.npz"
 SPLIT_RUNS = ("ca_scl", "bch_sc", "L32", "mixed_scl32")
 
@@ -706,6 +709,9 @@ def main(argv=None) -> None:
                          ("scl_decode", "scl_decode_traj"), B, gen, dev)
             + _decode_rows("L32 (16,2,2)", _mixed_spec((16, 2, 2), 20, crc8), 32,
                            ("scl_decode", "scl_decode_traj"), B, gen, dev)),
+        "mixed_n1024": lambda: _decode_rows(
+            "mixed_n1024", get_preset("mixed_n1024_scl32").spec, 32,
+            ("scl_mc_counters", "scl_decode"), B, gen, dev),
     }
     for group in only:
         if group == "mixed_scl32":

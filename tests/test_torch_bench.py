@@ -141,7 +141,11 @@ def test_gen_sequences_specs_match_jax():
         "jax_gen_sequences", ROOT / "scripts" / "gen_sequences.py")
     jax_script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_script)
-    assert gen_sequences.SPECS == jax_script.SPECS
+    # the JAX script's specs, each as it states it, and the port's one own
+    # (the mixed_n1024_scl32 preset's mask)
+    own = {"mixed_n1024_k528": ((16, 16, 2, 2), 528, 2.0, "mc")}
+    assert gen_sequences.SPECS == {**jax_script.SPECS, **own}
+    assert not set(own) & set(jax_script.SPECS)
     assert "frames = 1 << 15" in (ROOT / "scripts" / "gen_sequences.py").read_text()
     assert gen_sequences.MC_FRAMES == 1 << 15 and gen_sequences.MC_SEED == 0
 

@@ -640,6 +640,45 @@ def test_capacity32_kernels_match_plain(cuda, factors, K, crc, L):
                            step.plain_counts((7, 8), 0.8, 256, noise))
 
 
+def test_mixed_n1024_k5_matches_plain(cuda):
+    """mixed_n1024_scl32 (N=1024 = 16*16*2*2, K=512 + CRC-16, L=32): K5 at
+    its capacity-32 l > 2 instance over 600 codewords (two full waves of 264
+    on an H100 and a part of one) equals the plain step bit for bit on the
+    in-kernel draw at each of the preset's points, and each call launches
+    that instance alone, once (`INSTANCES`)."""
+    from polar_tpu_torch.models.presets import mixed_n1024_scl32
+    from polar_tpu_torch.ops.mc import build_mc_step
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    preset, B = mixed_n1024_scl32(), 600
+    step = build_mc_step(preset.spec, 32, device=cuda, counters=True)
+    assert step.decoder.kernels.plan("scl_mc_counters", cuda).instance == \
+        "scl_mc_counters_big_c32"
+    for i, snr in enumerate(preset.ebn0_grid):
+        sigma = float(np.float32(ebn0_to_sigma(snr, preset.spec.rate)))
+        before = dict(cuda_scl.INSTANCES)
+        got = step.counts((i, 1024), sigma, B)
+        grew = {k: n - before.get(k, 0) for k, n in cuda_scl.INSTANCES.items()
+                if n != before.get(k, 0)}
+        assert grew == {"scl_mc_counters_big_c32": 1}
+        assert torch.equal(got, step.plain_counts((i, 1024), sigma, B)), snr
+
+
+def test_mixed_n1024_k1_matches_plain(cuda):
+    """mixed_n1024_scl32's own-LLR decode: `build_scl_decoder` takes K1 at
+    its capacity-32 l > 2 instance, which equals the plain decoder in u,
+    payload, crc_ok and pm over 600 drawn frames at 1.0 dB."""
+    from polar_tpu_torch.models.presets import mixed_n1024_scl32
+    from polar_tpu_torch.ops.mc import mc_draw
+    from polar_tpu_torch.sim.channel import ebn0_to_sigma
+    spec = mixed_n1024_scl32().spec
+    dec = build_scl_decoder(spec, 32, device=cuda)
+    assert dec.kernels.plan("scl_decode", cuda).instance == "scl_decode_big_c32"
+    _, llr = mc_draw(spec, (9, 1024), float(ebn0_to_sigma(1.0, spec.rate)), 600, cuda)
+    before = dict(cuda_scl.INSTANCES)
+    _equal(dec.kernel(llr), dec.plain(llr))
+    assert cuda_scl.INSTANCES["scl_decode_big_c32"] == before.get("scl_decode_big_c32", 0) + 1
+
+
 def _launch_once(k, name, cuda, B=3):
     """Launch kernel `name` of the SclKernels `k` once over B codewords of
     random inputs (what it decodes does not matter here)."""
